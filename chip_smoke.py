@@ -1,0 +1,546 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's HotSwap cold-start path on the card and checks it:
+
+1. environment: card name and power limit, torch and CUDA versions;
+2. build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   the path gives it (page_gather bitwise; flash_attention within 2e-2 for
+   bf16 and 2e-5 for fp32);
+4. the quickstart loop: three model images in one pool, two tenants per
+   serving workload, baseline / warmswap under all four restore policies /
+   prebaked, all giving equal classes;
+5. qwen1.5-0.5b at full width: a 0.93 GB image migrated under BULK and
+   NO_PAGESERVER, restored leaves bitwise equal to the originals, prefill at
+   S=64 and S=2048 with equal logits, and the kernel path against the plain
+   path;
+6. kernel times (CUDA events around 10 back-to-back calls, median of 20 runs
+   after warm-up) beside their bound,
+   their plain version and one library call, and qwen cold-start totals.
+
+The launch counters are set to 0 just before each driven path (phases 4 and
+5) and read just after; a kernel the path did not launch fails the run. Any
+failed check exits non-zero. The last line is the JSON device record.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import zlib
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per the data sheet
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+QWEN_SEQS = (64, 2048)
+FLASH_SWEEP = [  # (B, H, Hkv, S, d, causal, window, softcap) as in tests/test_kernels.py
+    (2, 4, 2, 256, 64, True, None, None),
+    (1, 4, 4, 128, 64, True, 64, None),
+    (2, 2, 1, 200, 32, True, None, 50.0),
+    (1, 2, 2, 96, 128, False, None, None),
+    (1, 8, 2, 320, 64, True, 100, 30.0),
+]
+FLASH_MAIN = [(1, 16, 16, s, 64) for s in QWEN_SEQS] + [(1, 8, 4, s, 64) for s in QWEN_SEQS]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def sync(device) -> None:
+    from repro_torch.device import synchronize
+    synchronize(device)
+
+
+def expect(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, per: int = 10, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn`` in ms: ``iters`` timed runs of
+    ``per`` back-to-back calls each, between two CUDA events, so host-side
+    launch work overlaps the device as it does on the main path."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()  # timing runs on the card only
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------------
+# 1-2. environment and build
+# ---------------------------------------------------------------------------------
+
+def phase_environment() -> str:
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
+    log(f"[1] card: {card}")
+    log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build_all(["page_gather", "flash_attention"])
+    log(f"[2] built page_gather + flash_attention in {time.perf_counter() - t0:.2f} s")
+    for name, text in sorted(build.BUILD_LOG.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[2] {name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------------
+# 3. kernels against their plain versions
+# ---------------------------------------------------------------------------------
+
+def check_page_gather(store, device, errs: dict) -> None:
+    import torch
+    from repro_torch.kernels.page_gather import page_gather, page_gather_plain
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    P = store.shape[0]
+    cases = [("store/all-permuted", store, torch.randperm(P, generator=gen)),
+             ("store/span", store, torch.arange(min(5, P), min(80, P))),
+             ("store/repeats", store, torch.randint(0, P, (17,), generator=gen))]
+    for dtype in (torch.float32, torch.int32, torch.bfloat16):
+        for (p, e, k) in [(64, 256, 20), (16, 128, 16), (8, 512, 1)]:
+            pool = (torch.randn((p, e), generator=gen) * 10).to(dtype).to(device)
+            cases.append((f"{dtype}/({p},{e})x{k}", pool,
+                          torch.randint(0, p, (k,), generator=gen)))
+    odd = torch.randint(0, 256, (9, 1000 * 4 + 3), dtype=torch.uint8,
+                        generator=gen).to(device)           # byte tail, unaligned rows
+    cases.append(("uint8/odd-row", odd, torch.tensor([8, 0, 3, 3, 7])))
+    for name, pool, ids in cases:
+        for where in ("host ids", "device ids"):
+            ids_in = ids.to(torch.int32)
+            if where == "device ids":
+                ids_in = ids_in.to(device)
+            out = page_gather(pool, ids_in)
+            ref = page_gather_plain(pool, ids.to(device))
+            sync(device)
+            expect(out.dtype == ref.dtype and out.shape == ref.shape
+                   and torch.equal(out.view(torch.uint8), ref.view(torch.uint8)),
+                   f"page_gather {name} ({where}) is not bitwise equal to pool[ids]")
+    errs["page_gather"] = 0.0
+    log(f"[3] page_gather: {2 * len(cases)} cases bitwise equal "
+        f"(incl. 4 MiB rows of the qwen store, {P} pages)")
+
+
+def check_flash(device, errs: dict) -> None:
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    gen = torch.Generator(device=device).manual_seed(7)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, H, Hkv, S, d, causal, window, cap) in FLASH_SWEEP:
+            cases.append((dtype, B, H, Hkv, S, S, d, causal, window, cap))
+        for (B, H, Hkv, S, d) in FLASH_MAIN:
+            cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
+        cases.append((dtype, 1, 4, 2, 100, 150, 64, True, None, None))   # Sq != Sk
+        cases.append((dtype, 1, 2, 2, 70, 70, 64, True, 0, None))        # all masked
+    worst = 0.0
+    for (dtype, B, H, Hkv, Sq, Sk, d, causal, window, cap) in cases:
+        q = torch.randn((B, H, Sq, d), generator=gen, device=device).to(dtype)
+        k = torch.randn((B, Hkv, Sk, d), generator=gen, device=device).to(dtype)
+        v = torch.randn((B, Hkv, Sk, d), generator=gen, device=device).to(dtype)
+        out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+        ref = flash_attention_plain(q, k, v, causal=causal, window=window, softcap=cap)
+        sync(device)
+        tol = TOL[str(dtype).split(".")[1]]
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        ok = bool(torch.isfinite(out.float()).all()) and bool(
+            (diff <= tol + tol * ref.float().abs()).all())
+        label = (f"{str(dtype).split('.')[1]} B{B} H{H}/{Hkv} Sq{Sq} Sk{Sk} d{d} "
+                 f"causal={causal} window={window} softcap={cap}")
+        expect(ok, f"flash_attention {label}: max |err| {err} over tolerance {tol}")
+        if (B, H, Hkv, d) in [(1, 16, 16, 64), (1, 8, 4, 64)] and Sq in QWEN_SEQS \
+                and dtype == torch.bfloat16:
+            worst = max(worst, err)
+        log(f"[3] flash_attention {label}: max |err| {err:.3e} (tol {tol})")
+    errs["flash_attention"] = worst
+
+
+# ---------------------------------------------------------------------------------
+# 4. the quickstart loop
+# ---------------------------------------------------------------------------------
+
+def counted(builder, counts: dict, key: str):
+    def build():
+        counts[key] = counts.get(key, 0) + 1
+        return builder()
+    return build
+
+
+def phase_quickstart(device, tmp: str) -> dict:
+    import torch
+    from repro_torch.core import (ColdStartConfig, ColdStartOrchestrator,
+                                  DependencyManager, FunctionRegistry, RestorePolicy)
+    from repro_torch.core import workloads as wl
+    from repro_torch.kernels import flash_attention, page_gather
+
+    manager = DependencyManager(disk_dir=f"{tmp}/pool", device=device)
+    registry = FunctionRegistry(store_dir=f"{tmp}/store")
+    builds: dict = {}
+    for image_id in wl.IMAGE_CONFIGS:
+        builder = counted(wl.model_params_builder(image_id, device=device), builds,
+                          image_id)
+        execs = wl.make_model_executables(image_id)
+        manager.register_image(image_id, image_id, builder, executables=execs)
+    for fn in ("lr_serving", "cnn_serving", "rnn_serving"):
+        w = wl.WORKLOADS[fn]
+        for tenant in ("a", "b"):
+            fn_id = f"{fn}-{tenant}"
+            registry.register(
+                fn_id, w.image_id,
+                wl._head_builder(w.image_id, seed=zlib.crc32(fn_id.encode()) % 100),
+                w.handler_fn, base_params_builder=wl.model_params_builder(
+                    w.image_id, device=device),
+                write_baseline_checkpoint=True)
+    orch = ColdStartOrchestrator(manager, registry, ColdStartConfig())
+    log(f"[4] pool: {manager.summary()['live_images']} "
+        f"({manager.pool_bytes() / 1e6:.1f} MB live on {device})")
+
+    page_gather.launches = 0
+    flash_attention.launches = 0
+    for fn_id in registry.list():
+        req = wl.default_request()
+        classes = {}
+        inst, t = orch.cold_start_baseline(fn_id)
+        classes["baseline"] = inst.invoke(req)[0]
+        log(f"[4] {fn_id} baseline: {json.dumps(t.as_dict())}")
+        for policy in RestorePolicy:
+            inst, t = orch.cold_start_warmswap(fn_id, policy)
+            classes[f"warmswap/{policy.value}"] = inst.invoke(req)[0]
+            log(f"[4] {fn_id} warmswap/{policy.value}: {json.dumps(t.as_dict())}")
+        orch.prebake(fn_id)
+        inst, t = orch.cold_start_prebaked(fn_id)
+        classes["prebaked"] = inst.invoke(req)[0]
+        log(f"[4] {fn_id} prebaked: {json.dumps(t.as_dict())}")
+        first = classes["baseline"]
+        for path, c in classes.items():
+            expect(c.shape == first.shape and (c == first).all(),
+                   f"{fn_id}: {path} classes {c} differ from baseline {first}")
+        log(f"[4] {fn_id}: classes {first.tolist()} equal on all 6 start paths")
+    sync(device)
+    counts = {"page_gather": page_gather.launches,
+              "flash_attention": flash_attention.launches}
+    log(f"[4] pool live bytes {manager.pool_bytes()}; "
+        f"prebaked bytes {orch.prebaked_bytes()}")
+    for image_id in wl.IMAGE_CONFIGS:
+        log(f"[4] {image_id}: image initialized {builds.get(image_id, 0)} time(s)")
+        expect(builds.get(image_id) == 1, f"{image_id} was initialized "
+               f"{builds.get(image_id, 0)} times, want 1")
+    log(f"[4] launches during the quickstart loop: {counts}")
+    for name, n in counts.items():
+        expect(n > 0, f"{name} was not launched by the quickstart loop")
+    return counts
+
+
+# ---------------------------------------------------------------------------------
+# 5. qwen1.5-0.5b at full width
+# ---------------------------------------------------------------------------------
+
+def _qwen_handler(cfg):
+    def handler(params, hw, request, execs):
+        import torch
+        from repro_torch.models.transformer import forward
+        dev = params["embed"]["tok"].device
+        tokens = torch.as_tensor(request["tokens"], dtype=torch.int64, device=dev)
+        logits = forward(params, tokens, cfg, logits_slice=1)[:, -1]
+        w = torch.as_tensor(hw["w"], device=dev)
+        return torch.argmax(logits @ w + torch.as_tensor(hw["bias"], device=dev),
+                            dim=-1).cpu().numpy()
+    return handler
+
+
+def phase_qwen_setup(device):
+    import torch
+    from repro_torch.configs.qwen1_5_0_5b import CONFIG
+    from repro_torch.core import DependencyManager
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.transformer import init_params
+
+    cfg = CONFIG
+    keep: dict = {}
+
+    def builder():
+        gen = torch.Generator(device=device).manual_seed(0)
+        keep["params"] = init_params(gen, cfg, torch.bfloat16)
+        return keep["params"]
+
+    manager = DependencyManager(device=device)
+    t0 = time.perf_counter()
+    manager.register_image(cfg.name, cfg.name, builder)
+    sync(device)
+    img = manager._ensure_live(cfg.name)
+    table = img.metadata.page_table
+    log(f"[3] {cfg.name} image for the checks: {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.n_heads}x{cfg.resolved_head_dim} heads d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} -> {padded_vocab(cfg)}; payload {table.nbytes_payload} B in "
+        f"{table.n_pages} pages of {table.page_size} B ({img.image_bytes} B on device); "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    expect(padded_vocab(cfg) == 152_064, "qwen vocab must pad to 152,064")
+    return cfg, manager, img, keep["params"]
+
+
+def phase_qwen(cfg, manager, img, original, device) -> dict:
+    import torch
+    from repro_torch.core import RestorePolicy
+    from repro_torch.core.pages import byte_view
+    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.kernels import flash_attention, page_gather
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.transformer import forward
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    tokens = {s: torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=device)
+              for s in QWEN_SEQS}
+    ref_leaves = dict(flatten_with_keys(original))
+    page_gather.launches = 0
+    flash_attention.launches = 0
+    restored = {}
+    for policy in (RestorePolicy.BULK, RestorePolicy.NO_PAGESERVER):
+        t0 = time.perf_counter()
+        r = manager.request_migration(cfg.name, policy)
+        r.fault(r.metadata.page_table.order[0])
+        params = r.as_pytree()
+        sync(device)
+        dt = time.perf_counter() - t0
+        manager.release(cfg.name)
+        got = dict(flatten_with_keys(params))
+        expect(got.keys() == ref_leaves.keys(), f"{policy.value}: leaf keys differ")
+        for key, leaf in got.items():
+            ref = ref_leaves[key]
+            expect(leaf.dtype == ref.dtype and leaf.shape == ref.shape
+                   and torch.equal(byte_view(leaf), byte_view(ref)),
+                   f"{policy.value}: restored leaf {key} is not bitwise equal")
+        log(f"[5] {policy.value}: {len(got)} leaves restored bitwise equal in "
+            f"{dt * 1e3:.1f} ms ({r.stats})")
+        restored[policy] = params
+    for s in QWEN_SEQS:
+        out = {}
+        for policy, params in restored.items():
+            out[policy] = forward(params, tokens[s], cfg)
+        ref = forward(original, tokens[s], cfg)
+        sync(device)
+        for policy, logits in out.items():
+            expect(torch.equal(logits, ref), f"S={s}: logits from {policy.value} "
+                   "pages differ from the logits before paging")
+        expect(ref.shape == (1, s, 152_064) and bool(torch.isfinite(ref).all()),
+               f"S={s}: logits not finite or of shape {tuple(ref.shape)}")
+        log(f"[5] S={s}: logits {tuple(ref.shape)} equal (torch.equal) for restored "
+            f"and original params")
+    counts = {"page_gather": page_gather.launches,
+              "flash_attention": flash_attention.launches}
+    log(f"[5] launches during the qwen path: {counts}")
+    for name, n in counts.items():
+        expect(n > 0, f"{name} was not launched by the qwen path")
+
+    # kernel path vs plain path on the card (not counted: checks only)
+    for s in QWEN_SEQS:
+        k_logits = forward(original, tokens[s], cfg)
+        p_logits = forward(original, tokens[s], cfg, attention_fn=flash_attention_plain)
+        diff = float((k_logits - p_logits).abs().max())
+        scale = float(p_logits.abs().max())
+        agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
+        log(f"[5] S={s}: kernel vs plain forward max |dlogit| {diff:.4e} "
+            f"(max |logit| {scale:.4e}, ratio {diff / scale:.3e}); argmax agreement "
+            f"{agree:.4f}")
+        expect(diff <= 5e-2 * scale, f"S={s}: kernel path differs from plain path "
+               f"by {diff} > 5e-2 * max|logit|")
+    return counts
+
+
+def phase_qwen_coldstart(cfg, manager, device, tmp: str) -> dict:
+    import numpy as np
+    from repro_torch.core import (ColdStartConfig, ColdStartOrchestrator,
+                                  FunctionRegistry, RestorePolicy)
+    from repro_torch.core import workloads as wl
+    from repro_torch.models.layers import padded_vocab
+
+    registry = FunctionRegistry(store_dir=f"{tmp}/qwen-store")
+    img = manager._ensure_live(cfg.name)
+
+    def head():
+        rng = np.random.default_rng(5)
+        return {"w": (rng.normal(size=(padded_vocab(cfg), 16))
+                      / np.sqrt(cfg.d_model)).astype(np.float32),
+                "bias": np.zeros((16,), np.float32)}
+
+    def request():
+        return {"tokens": np.random.default_rng(7).integers(0, 1000, (1, 64),
+                                                             dtype=np.int32)}
+
+    handler = _qwen_handler(cfg)
+    if "qwen-tenant" not in wl.WORKLOADS:      # its first request comes from here
+        wl.WORKLOADS.register("qwen-tenant", wl.Workload(
+            "qwen-tenant", cfg.name, handler, head, request))
+    registry.register("qwen-tenant", cfg.name, head, handler,
+                      base_params_builder=img.params, write_baseline_checkpoint=True)
+    orch = ColdStartOrchestrator(manager, registry, ColdStartConfig())
+    req = request()
+    totals = {"baseline": [], "warmswap/bulk": [], "warmswap/no_pageserver": []}
+    classes = []
+    for rnd in range(3):
+        inst, t = orch.cold_start_baseline("qwen-tenant")
+        totals["baseline"].append(t.total)
+        classes.append(inst.invoke(req)[0])
+        log(f"[6] qwen run {rnd} baseline: {json.dumps(t.as_dict())}")
+        for policy in (RestorePolicy.BULK, RestorePolicy.NO_PAGESERVER):
+            inst, t = orch.cold_start_warmswap("qwen-tenant", policy)
+            totals[f"warmswap/{policy.value}"].append(t.total)
+            classes.append(inst.invoke(req)[0])
+            log(f"[6] qwen run {rnd} warmswap/{policy.value}: {json.dumps(t.as_dict())} "
+                f"{inst.migration_stats}")
+            del inst
+    expect(all((c == classes[0]).all() for c in classes),
+           "qwen cold starts disagree on classes")
+    out = {k: statistics.median(v) for k, v in totals.items()}
+    log(f"[6] qwen cold start totals, median of 3 (s): {json.dumps(out)}; "
+        f"all runs {json.dumps(totals)}")
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# 6. kernel times
+# ---------------------------------------------------------------------------------
+
+def phase_times(img, device, errs: dict, launches: dict) -> list:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, page_gather
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.page_gather import page_gather_plain
+
+    rows = []
+    saved = {"page_gather": page_gather.launches,
+             "flash_attention": flash_attention.launches}
+    # page_gather at the NO_PAGESERVER shape: every 4 MiB page of the qwen image
+    store = img.store
+    K = store.shape[0]
+    ids_host = torch.arange(K, dtype=torch.int32)      # as the page server passes them
+    ids_dev = ids_host.to(device)
+    ids_long = ids_dev.long()
+    nbytes = 2 * K * store.shape[1]
+    t_k = cuda_ms(lambda: page_gather(store, ids_host))
+    t_d = cuda_ms(lambda: page_gather(store, ids_dev))
+    t_p = cuda_ms(lambda: page_gather_plain(store, ids_long))
+    t_l = cuda_ms(lambda: torch.index_select(store, 0, ids_long))
+    t_k2 = cuda_ms(lambda: page_gather(store, ids_host))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[6] page_gather K={K} rows of {store.shape[1]} B: kernel {t_k:.4f} / "
+        f"{t_k2:.4f} ms with host ids ({nbytes / (t_k * 1e-3) / 1e9:.1f} GB/s), "
+        f"{t_d:.4f} ms with device ids (range check syncs), plain {t_p:.4f} ms, "
+        f"index_select {t_l:.4f} ms, bound {bound:.4f} ms (bytes)")
+    rows.append({"name": "page_gather", "route": "cuda",
+                 "source": "src/repro_torch/csrc/page_gather.cu",
+                 "replaces": "src/repro/kernels/page_gather/kernel.py:27",
+                 "launches": launches["page_gather"], "max_abs_err": errs["page_gather"],
+                 "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": "bytes",
+                 "library_ms": t_l})
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    flash_rows = {}
+    for (B, H, Hkv, S, d) in FLASH_MAIN:
+        q = torch.randn((B, H, S, d), generator=gen, device=device).bfloat16()
+        k = torch.randn((B, Hkv, S, d), generator=gen, device=device).bfloat16()
+        v = torch.randn((B, Hkv, S, d), generator=gen, device=device).bfloat16()
+        t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+        t_p = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        pairs = S * (S + 1) // 2                      # unmasked causal (q, k) pairs
+        ops = 4 * B * H * d * pairs
+        moved = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+        t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        log(f"[6] flash_attention bf16 B{B} H{H}/{Hkv} S{S} d{d} causal: kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms "
+            f"({by}), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+        flash_rows[(H, Hkv, S)] = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
+            "launches": launches["flash_attention"],
+            "max_abs_err": errs["flash_attention"], "ms": t_k, "plain_ms": t_p,
+            "bound_ms": bound, "bound_by": by, "library_ms": t_l}
+    rows.append(flash_rows[(16, 16, 2048)])          # qwen prefill at S=2048
+    page_gather.launches = saved["page_gather"]       # timing launches do not count
+    flash_attention.launches = saved["flash_attention"]
+    return rows
+
+
+# ---------------------------------------------------------------------------------
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("no CUDA device: this smoke test runs on the card only", file=sys.stderr)
+        return 1
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"the port's package is missing under {src}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
+    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    card = phase_environment()
+    phase_build()
+    errs: dict = {}
+    cfg, qmanager, qimg, qparams = phase_qwen_setup(device)
+    check_page_gather(qimg.store, device, errs)
+    check_flash(device, errs)
+    with tempfile.TemporaryDirectory(prefix="repro-torch-smoke-") as tmp:
+        quick = phase_quickstart(device, tmp)
+        qwen = phase_qwen(cfg, qmanager, qimg, qparams, device)
+        del qparams
+        launches = {k: quick[k] + qwen[k] for k in quick}
+        rows = phase_times(qimg, device, errs, launches)
+        phase_qwen_coldstart(cfg, qmanager, device, tmp)
+    log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

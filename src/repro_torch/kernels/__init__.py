@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+Importing this package builds nothing: a kernel is compiled at its first
+launch (``kernels/build.py``).
+"""
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.page_gather import page_gather, page_gather_plain
+
+__all__ = ["flash_attention", "flash_attention_plain", "page_gather",
+           "page_gather_plain"]

@@ -1,0 +1,7 @@
+"""Flash attention (port of ``repro.kernels.flash_attention``)."""
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_plain,
+)
+
+__all__ = ["flash_attention", "flash_attention_plain"]

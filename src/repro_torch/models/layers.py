@@ -1,0 +1,127 @@
+"""Core neural layers: norms, rotary embeddings, MLPs, embeddings.
+
+Port of ``repro.models.layers``: plain functions ``apply(params, x, ...)`` over
+dicts of tensors, with params made by a matching ``init_*`` that draws from a
+``torch.Generator`` on the generator's device. Activations run in the
+parameter dtype; norms and rotary embeddings in fp32, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ArchConfig
+
+
+def _he(gen: torch.Generator, shape, scale_dim: int, dtype) -> torch.Tensor:
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x / math.sqrt(scale_dim)).to(dtype)
+
+
+def _zeros(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    return torch.zeros(tuple(shape), dtype=dtype, device=gen.device)
+
+
+# ---------------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------------
+
+def init_rmsnorm(gen: torch.Generator, d: int, dtype, lead=()) -> dict:
+    return {"scale": _zeros(gen, (*lead, d), dtype)}  # (1 + scale) parameterization
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + params["scale"].float())).to(dtype)
+
+
+# ---------------------------------------------------------------------------------
+# Rotary position embeddings (half-split form, not interleaved)
+# ---------------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    if theta <= 0:
+        return x
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)          # (hd/2,)
+    angles = positions.float()[..., None] * freqs                 # (..., S, hd/2)
+    angles = angles[..., None, :]                                 # (..., S, 1, hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, dtype, lead=()) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {
+            "w_gate": _he(gen, (*lead, d, f), d, dtype),
+            "w_in": _he(gen, (*lead, d, f), d, dtype),
+            "w_out": _he(gen, (*lead, f, d), f, dtype),
+        }
+    return {"w_in": _he(gen, (*lead, d, f), d, dtype),
+            "w_out": _he(gen, (*lead, f, d), f, dtype)}
+
+
+def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind in ("swiglu", "geglu"):
+        gate = x @ params["w_gate"]
+        act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
+        return (act * (x @ params["w_in"])) @ params["w_out"]
+    return F.gelu(x @ params["w_in"], approximate="tanh") @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------------
+# Embeddings / unembedding
+# ---------------------------------------------------------------------------------
+
+def padded_vocab(cfg: ArchConfig, multiple: int = 512) -> int:
+    """Vocab rounded up so the embedding table shards evenly on the model axis."""
+    return ((cfg.vocab_size + multiple - 1) // multiple) * multiple
+
+
+def init_embedding(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
+    v = padded_vocab(cfg)
+    p = {"tok": _he(gen, (v, cfg.d_model), cfg.d_model, dtype)}
+    if not cfg.tie_embeddings:
+        p["head"] = _he(gen, (cfg.d_model, v), cfg.d_model, dtype)
+    return p
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = params["tok"][tokens.long()]
+    if cfg.emb_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def unembed(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits in fp32; the product runs in the parameter dtype and is cast
+    afterwards, as in the reference."""
+    table = params["head"] if "head" in params else params["tok"].T
+    logits = (x @ table).float()
+    return softcap(logits, cfg.final_logit_softcap)
+
+
+def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if not cap:
+        return logits
+    return cap * torch.tanh(logits / cap)

@@ -30,3 +30,9 @@ except ImportError:
     _spec.loader.exec_module(_shim)
     sys.modules["hypothesis"] = _shim
     sys.modules["hypothesis.strategies"] = _shim.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips itself inside the test when "
+        "there is none")

@@ -1,0 +1,75 @@
+"""The CUDA kernels against their plain versions on the card.
+
+Every test here needs a CUDA device and skips itself without one. The file
+imports neither JAX nor the JAX package, so it also runs where only PyTorch
+is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_kernels_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import (
+    flash_attention,
+    flash_attention_plain,
+    page_gather,
+    page_gather_plain,
+)
+
+FLASH_ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap): tests/test_kernels.py:29-35
+    (2, 4, 2, 256, 64, True, None, None),
+    (1, 4, 4, 128, 64, True, 64, None),
+    (2, 2, 1, 200, 32, True, None, 50.0),
+    (1, 2, 2, 96, 128, False, None, None),
+    (1, 8, 2, 320, 64, True, 100, 30.0),
+    (1, 16, 16, 2048, 64, True, None, None),      # qwen1.5-0.5b prefill
+    (1, 2, 2, 70, 64, True, 0, None),             # every key masked
+]
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16,
+                                   torch.uint8])
+def test_page_gather_kernel_bitwise_equals_plain(dtype):
+    dev = _card()
+    rng = np.random.default_rng(1)
+    for P, E, K in [(64, 256, 20), (16, 128, 16), (8, 512, 1), (9, 4003, 5)]:
+        pool = torch.from_numpy(rng.standard_normal((P, E)) * 10).to(dtype).to(dev)
+        ids = torch.from_numpy(rng.integers(0, P, (K,), dtype=np.int32))
+        for ids_in in (ids, ids.to(dev)):
+            before = page_gather.launches
+            out = page_gather(pool, ids_in)
+            torch.cuda.synchronize()
+            assert page_gather.launches == before + 1
+            ref = page_gather_plain(pool, ids.to(dev))
+            assert out.dtype == ref.dtype and out.shape == ref.shape
+            assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dtype):
+    dev = _card()
+    rng = np.random.default_rng(7)
+    tol = TOL[dtype]
+    for (B, H, Hkv, S, d, causal, window, cap) in FLASH_ROWS:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(dtype).to(dev)
+                   for shape in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d)))
+        opts = dict(causal=causal, window=window, softcap=cap)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, **opts)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        ref = flash_attention_plain(q, k, v, **opts)
+        assert out.dtype == dtype and torch.isfinite(out.float()).all()
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                                   atol=tol, rtol=tol)
