@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's HotSwap cold-start path on the card and checks it:
+Drives the port's HotSwap cold-start and serving paths on the card and checks
+them:
 
 1. environment: card name and power limit, torch and CUDA versions;
-2. build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+2. build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a),
+   one nvcc per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the path gives it (page_gather bitwise; flash_attention within 2e-2 for
-   bf16 and 2e-5 for fp32);
+   the paths give it (page_gather bitwise; flash_attention and
+   decode_attention within 2e-2 for bf16 and 2e-5 for fp32);
 4. the quickstart loop: three model images in one pool, two tenants per
    serving workload, baseline / warmswap under all four restore policies /
    prebaked, all giving equal classes;
@@ -19,11 +21,20 @@ Drives the port's HotSwap cold-start path on the card and checks it:
    path;
 6. kernel times (CUDA events around 10 back-to-back calls, median of 20 runs
    after warm-up) beside their bound,
-   their plain version and one library call, and qwen cold-start totals.
+   their plain version and one library call, and qwen cold-start totals;
+7. serving on qwen3-1.7b at full width (28 layers, fp32, 6.9 GB image): a
+   ReplicaSet of two replicas brought up from the pool (BULK), each with 4
+   slots of 4096 positions, serves 8 requests (prompts of 512-2048 tokens, 64
+   new tokens each); one replica is killed and recovered through warmswap,
+   then through baseline (weights drawn anew on the card), and serves one
+   more request. Checks: prefill + decode steps against the full forward,
+   the kernel path against the plain path on the first request, and
+   continuous batching against a 1-slot engine, each within 1e-3 of the
+   largest |logit| (fp32, different product orders).
 
-The launch counters are set to 0 just before each driven path (phases 4 and
-5) and read just after; a kernel the path did not launch fails the run. Any
-failed check exits non-zero. The last line is the JSON device record.
+The launch counters are set to 0 just before each driven path (phases 4, 5
+and 7) and read just after; a kernel the path did not launch fails the run.
+Any failed check exits non-zero. The last line is the JSON device record.
 """
 from __future__ import annotations
 
@@ -49,6 +60,16 @@ FLASH_SWEEP = [  # (B, H, Hkv, S, d, causal, window, softcap) as in tests/test_k
     (1, 8, 2, 320, 64, True, 100, 30.0),
 ]
 FLASH_MAIN = [(1, 16, 16, s, 64) for s in QWEN_SEQS] + [(1, 8, 4, s, 64) for s in QWEN_SEQS]
+DECODE_SWEEP = [  # (B, H, Hkv, S, d, softcap) as in tests/test_kernels.py:50-54
+    (2, 4, 2, 300, 64, None),
+    (1, 8, 1, 512, 128, 50.0),
+    (4, 2, 2, 64, 32, None),
+]
+SERVE_ARCH = "qwen3_1_7b"
+SERVE_SLOTS, SERVE_SEQ, SERVE_NEW, SERVE_REQUESTS = 4, 4096, 64, 8
+SERVE_PROMPTS = (512, 2048)          # prompt lengths, drawn uniformly (numpy seed 21)
+DECODE_MAIN = (SERVE_SLOTS, 16, 8, SERVE_SEQ, 128)      # qwen3-1.7b decode: B, H, Hkv, C, d
+SERVE_LOGIT_TOL = 1e-3     # of max |logit|: fp32, products in another order
 
 
 class SmokeFailure(RuntimeError):
@@ -111,8 +132,9 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all(["page_gather", "flash_attention"])
-    log(f"[2] built page_gather + flash_attention in {time.perf_counter() - t0:.2f} s")
+    build.build_all(["page_gather", "flash_attention", "decode_attention"])
+    log(f"[2] built page_gather + flash_attention + decode_attention in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, text in sorted(build.BUILD_LOG.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -188,6 +210,58 @@ def check_flash(device, errs: dict) -> None:
             worst = max(worst, err)
         log(f"[3] flash_attention {label}: max |err| {err:.3e} (tol {tol})")
     errs["flash_attention"] = worst
+
+
+def _decode_masks(gen, B, S, device):
+    """An (S,) random mask, a (B, S) ring mask with a window (rows at other
+    depths, some wrapped), and the same with its last row all invalid."""
+    import torch
+    shared = torch.rand((S,), generator=gen, device=device) < 0.7
+    shared[0] = True
+    k_pos = torch.full((B, S), -1, dtype=torch.int64, device=device)
+    for b in range(B):
+        n = int(torch.randint(1, 3 * S // 2, (1,), generator=gen, device=device))
+        pos = torch.arange(max(0, n - S), n, device=device)
+        k_pos[b, pos % S] = pos
+    now = k_pos.max(1, keepdim=True).values
+    ring = (k_pos >= 0) & (k_pos <= now) & (now - k_pos < max(S // 3, 1))
+    empty = ring.clone()
+    empty[-1] = False
+    return [("shared", shared), ("ring", ring), ("row-empty", empty)]
+
+
+def check_decode(device, errs: dict) -> None:
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    gen = torch.Generator(device=device).manual_seed(17)
+    worst = 0.0
+    shapes = DECODE_SWEEP + [(*DECODE_MAIN, None)]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for (B, H, Hkv, S, d, cap) in shapes:
+            q = torch.randn((B, H, d), generator=gen, device=device).to(dtype)
+            k = torch.randn((B, Hkv, S, d), generator=gen, device=device).to(dtype)
+            v = torch.randn((B, Hkv, S, d), generator=gen, device=device).to(dtype)
+            for mname, valid in _decode_masks(gen, B, S, device):
+                out = decode_attention(q, k, v, valid, softcap=cap)
+                ref = decode_attention_plain(q, k, v, valid, softcap=cap)
+                sync(device)
+                diff = (out.float() - ref.float()).abs()
+                err = float(diff.max())
+                ok = bool(torch.isfinite(out.float()).all()) and bool(
+                    (diff <= tol + tol * ref.float().abs()).all())
+                label = (f"{str(dtype).split('.')[1]} B{B} H{H}/{Hkv} S{S} d{d} "
+                         f"softcap={cap} mask={mname}")
+                expect(ok, f"decode_attention {label}: max |err| {err} over "
+                       f"tolerance {tol}")
+                if (B, H, Hkv, S, d) == DECODE_MAIN and dtype == torch.float32:
+                    worst = max(worst, err)
+                n += 1
+                log(f"[3] decode_attention {label}: max |err| {err:.3e} (tol {tol})")
+    errs["decode_attention"] = worst
+    log(f"[3] decode_attention: {n} cases within tolerance")
 
 
 # ---------------------------------------------------------------------------------
@@ -432,19 +506,276 @@ def phase_qwen_coldstart(cfg, manager, device, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------------
+# 7. serving qwen3-1.7b at full width
+# ---------------------------------------------------------------------------------
+
+def _teacher_forced(params, cfg, prompt, tokens, attention_fn, decode_fn, device):
+    """Logits (len(tokens), vocab) of the prompt's prefill and of decode steps
+    fed ``tokens[:-1]``, on one path (kernels or their plain versions)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import decode_step, forward
+    toks = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
+    logits, st = forward(params, toks, cfg, make_state=True, state_len=SERVE_SEQ,
+                         logits_slice=1, attention_fn=attention_fn)
+    rows = [logits[0, -1, : cfg.vocab_size].cpu().numpy()]
+    for tok in tokens[:-1]:
+        lg, st = decode_step(params, st, torch.tensor([[tok]], device=device), cfg,
+                             decode_fn=decode_fn)
+        rows.append(lg[0, : cfg.vocab_size].cpu().numpy())
+    return np.stack(rows)
+
+
+def _agree_until_divergence(ref_req, req, tol_rel: float):
+    """Compare two runs of one request token by token: logits within
+    ``tol_rel`` of max |logit| while both saw the same tokens; where a token
+    differs, the two tokens must be a near tie in the reference's logits
+    (within twice the tolerance), and the rest of the request is conditioned
+    on other tokens and not compared. Returns (max |d logit|, steps compared,
+    diverged)."""
+    import numpy as np
+    worst, n = 0.0, 0
+    for t, (a, b) in enumerate(zip(ref_req.logits, req.logits)):
+        tol = tol_rel * float(np.abs(a).max())
+        d = float(np.abs(a - b).max())
+        expect(d <= tol, f"request {req.rid} step {t}: |d logit| {d} > {tol}")
+        worst, n = max(worst, d), n + 1
+        ta, tb = ref_req.tokens[t], req.tokens[t]
+        if ta != tb:
+            expect(abs(float(a[ta]) - float(a[tb])) <= 2 * tol,
+                   f"request {req.rid} step {t}: tokens {ta} != {tb} without a tie")
+            return worst, n, True
+    return worst, n, False
+
+
+def profile_decode(eng, device, n_steps: int = 3) -> None:
+    """torch.profiler over ``n_steps`` decode steps of an engine's state at
+    its full slot count (as the engine runs one, logits copied to the host):
+    device busy time against the host's wall clock, and the kernels that take
+    it. Measures only; the state is left advanced, its slots idle."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.api import make_serve_step_with_logits
+    step = make_serve_step_with_logits(eng.cfg)
+    tok = torch.zeros((eng.scfg.max_slots, 1), dtype=torch.int64, device=device)
+    logits, eng.state = step(eng.params, eng.state, tok)          # warm-up
+    np.asarray(logits.cpu())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            logits, eng.state = step(eng.params, eng.state, tok)
+            np.asarray(logits.cpu())
+        wall = time.perf_counter() - t0
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    if not kernels:
+        log("[7] decode step profile: the profiler saw no kernels; device time not "
+            "measured")
+        return
+    n_launch = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    log(f"[7] decode step profile ({n_steps} steps, {eng.scfg.max_slots} slots): wall "
+        f"{wall * 1e3 / n_steps:.3f} ms/step, device busy {busy / n_steps:.3f} ms/step "
+        f"(idle share {1 - busy / (wall * 1e3):.4f}), {n_launch / n_steps:.0f} kernels "
+        f"per step")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[7]   {ms / n_steps:.4f} ms/step  {name[:110]}")
+
+
+def phase_serving(device) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import DependencyManager, RestorePolicy
+    from repro_torch.core.tree import flatten_with_keys, nest
+    from repro_torch.kernels import decode_attention, flash_attention, page_gather
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.attention import decode_valid
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.transformer import decode_step, forward, init_params
+    from repro_torch.runtime import ReplicaSet
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.serving.scheduler import PlacementContext, place_invocation
+
+    cfg = get_config(SERVE_ARCH)
+    kernels = {"page_gather": page_gather, "flash_attention": flash_attention,
+               "decode_attention": decode_attention}
+
+    def builder():
+        return init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                           torch.float32)
+
+    manager = DependencyManager(device=device)
+    t0 = time.perf_counter()
+    manager.register_image(cfg.name, cfg.name, builder)
+    sync(device)
+    table = manager._ensure_live(cfg.name).metadata.page_table
+    log(f"[7] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} -> {padded_vocab(cfg)}, fp32: payload {table.nbytes_payload} B "
+        f"in {table.n_pages} pages ({manager.pool_bytes()} B live on the card), built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    scfg = ServeConfig(max_slots=SERVE_SLOTS, max_seq_len=SERVE_SEQ,
+                       max_new_tokens=SERVE_NEW, keep_logits=True)
+    # the model store a cold replica loads from: the weights in host memory,
+    # the fastest store there is (no disk read, no deserialization)
+    store = {k: v.cpu() for k, v in flatten_with_keys(builder())}
+
+    def make_engine(mgr, image_id, c, method):
+        if method == "warmswap":
+            eng = ServingEngine.from_pool(mgr, image_id, c, scfg,
+                                          policy=RestorePolicy.BULK)
+        else:
+            eng = ServingEngine(c, nest({k: v.to(device) for k, v in store.items()}),
+                                scfg)
+        sync(device)
+        return eng
+
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                                     SERVE_REQUESTS)]
+
+    # ---- the main path, counted
+    for k in kernels.values():
+        k.launches = 0
+    rs = ReplicaSet(manager, cfg.name, cfg, make_engine, n_replicas=2)
+    names = sorted(rs.replicas)
+    for e in rs.events:
+        log(f"[7] {e.replica} up via {e.method} in {e.seconds:.4f} s")
+    placed = {n: [] for n in names}
+    for i in range(len(prompts)):
+        placed[place_invocation(names, PlacementContext(
+            load=lambda n: len(placed[n])))].append(i)
+    served, decode_s, ttft, total_tokens = {}, [], [], 0
+    t_serve = time.perf_counter()
+    for name in names:                    # the replicas take turns on the one card
+        eng = rs.replicas[name]
+        t1 = time.perf_counter()
+        rids = [eng.submit(prompts[i]) for i in placed[name]]
+        while not eng.idle():
+            before = eng.pending
+            ts = time.perf_counter()
+            eng.step()
+            if eng.pending == before:              # no admission: a pure decode step
+                decode_s.append(time.perf_counter() - ts)
+        dt = time.perf_counter() - t1
+        m = eng.metrics()
+        toks = sum(len(r.tokens) for r in eng.completed.values())
+        total_tokens += toks
+        ttft += [r.ttft_s for r in eng.completed.values()]
+        log(f"[7] {name}: {m['completed']} requests (prompts "
+            f"{[len(prompts[i]) for i in placed[name]]}), {toks} tokens in {dt:.3f} s "
+            f"({toks / dt:.1f} tok/s), {m['engine_steps']} steps, mean ttft "
+            f"{m['mean_ttft_s'] * 1e3:.1f} ms, mean latency {m['mean_latency_s'] * 1e3:.1f} ms")
+        served.update((i, eng.completed[rid]) for i, rid in zip(placed[name], rids))
+    serve_s = time.perf_counter() - t_serve
+    expect(len(served) == SERVE_REQUESTS and all(
+        len(r.tokens) == SERVE_NEW and np.isfinite(np.stack(r.logits)).all()
+        for r in served.values()), "not every request completed with finite logits")
+    victim = names[0]
+    rs.kill(victim)
+    expect(victim not in rs.replicas, f"{victim} survived kill()")
+    warm_s = rs.recover(victim, method="warmswap")
+    rs.kill(victim)
+    cold_s = rs.recover(victim, method="baseline")
+    eng = rs.replicas[victim]
+    rid = eng.submit(prompts[0][:SERVE_PROMPTS[0]])
+    eng.run_until_done()
+    sync(device)
+    expect(len(eng.completed[rid].tokens) == SERVE_NEW, "recovered replica did not serve")
+    counts = {k: v.launches for k, v in kernels.items()}
+    log(f"[7] launches during the serving path: {counts}")
+    for name, n in counts.items():
+        expect(n > 0, f"{name} was not launched by the serving path")
+    out = {"counts": counts, "ttft_ms": statistics.mean(ttft) * 1e3,
+           "decode_step_ms": statistics.median(decode_s) * 1e3,
+           "tokens_per_s": total_tokens / serve_s, "recover_warmswap_s": warm_s,
+           "recover_baseline_s": cold_s}
+    log(f"[7] serving qwen3-1.7b fp32, 2 replicas x {SERVE_SLOTS} slots: mean ttft "
+        f"{out['ttft_ms']:.2f} ms, decode step {out['decode_step_ms']:.3f} ms (median of "
+        f"{len(decode_s)} steps at up to {SERVE_SLOTS} slots), {out['tokens_per_s']:.1f} "
+        f"tok/s overall; recovery warmswap {warm_s:.4f} s vs baseline {cold_s:.4f} s "
+        f"(x{cold_s / warm_s:.2f})")
+
+    # ---- checks, not counted
+    params = rs.replicas[names[1]].params
+    S, K = SERVE_PROMPTS[0], 8
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S + K)), device=device)
+    full = forward(params, seq, cfg)[0]
+    _, st = forward(params, seq[:, :S], cfg, make_state=True, state_len=SERVE_SEQ)
+    worst = 0.0
+    for i in range(K):
+        lg, st = decode_step(params, st, seq[:, S + i: S + i + 1], cfg)
+        ref = full[S + i]
+        d = float((lg[0] - ref).abs().max())
+        tol = SERVE_LOGIT_TOL * float(ref.abs().max())
+        expect(d <= tol, f"decode step {i} differs from the forward by {d} > {tol}")
+        worst = max(worst, d)
+    log(f"[7] prefill {S} + {K} decode steps vs full forward: max |d logit| {worst:.3e} "
+        f"(max |logit| {float(full[S:].abs().max()):.3f}, tolerance "
+        f"{SERVE_LOGIT_TOL} of it)")
+    del full, st
+
+    first = served[0]
+    kern = _teacher_forced(params, cfg, prompts[0], first.tokens, flash_attention,
+                           decode_attention, device)
+    plain = _teacher_forced(params, cfg, prompts[0], first.tokens,
+                            flash_attention_plain, decode_attention_plain, device)
+    d = float(np.abs(kern - plain).max())
+    tol = SERVE_LOGIT_TOL * float(np.abs(plain).max())
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).mean())
+    log(f"[7] request 0 (prompt {len(prompts[0])}): kernel vs plain path max |d logit| "
+        f"{d:.3e} (tolerance {tol:.3e}), argmax agreement {agree:.4f}")
+    expect(d <= tol, f"kernel path differs from plain path by {d} > {tol}")
+
+    single = ServingEngine(cfg, params, ServeConfig(
+        max_slots=1, max_seq_len=SERVE_SEQ, max_new_tokens=SERVE_NEW, keep_logits=True))
+    rids = [single.submit(p) for p in prompts]
+    single.run_until_done()
+    worst, compared, diverged = 0.0, 0, 0
+    for i, rid in enumerate(rids):
+        w, n, div = _agree_until_divergence(single.completed[rid], served[i],
+                                            SERVE_LOGIT_TOL)
+        worst, compared, diverged = max(worst, w), compared + n, diverged + div
+    log(f"[7] continuous batching vs 1-slot engine: {compared} steps compared, max "
+        f"|d logit| {worst:.3e}; {diverged} of {SERVE_REQUESTS} requests took another "
+        f"token at a near tie")
+    del single
+
+    profile_decode(rs.replicas[names[1]], device)
+
+    # this run's decode inputs for the timing row: layer 0's cache and mask
+    st = rs.replicas[names[1]].state
+    cache = st["unit"][0]
+    out["decode_inputs"] = (cache.k[0].clone(), cache.v[0].clone(),
+                            decode_valid(cache.k_pos[0], st["pos"], None))
+    for k, n in counts.items():
+        kernels[k].launches = n
+    return out
+
+
+# ---------------------------------------------------------------------------------
 # 6. kernel times
 # ---------------------------------------------------------------------------------
 
-def phase_times(img, device, errs: dict, launches: dict) -> list:
+def phase_times(img, device, errs: dict, launches: dict, decode_inputs) -> list:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, page_gather
+    from repro_torch.kernels import decode_attention, flash_attention, page_gather
+    from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.page_gather import page_gather_plain
 
     rows = []
-    saved = {"page_gather": page_gather.launches,
-             "flash_attention": flash_attention.launches}
+    kernels = {"page_gather": page_gather, "flash_attention": flash_attention,
+               "decode_attention": decode_attention}
+    saved = {name: k.launches for name, k in kernels.items()}
     # page_gather at the NO_PAGESERVER shape: every 4 MiB page of the qwen image
     store = img.store
     K = store.shape[0]
@@ -496,8 +827,40 @@ def phase_times(img, device, errs: dict, launches: dict) -> list:
             "max_abs_err": errs["flash_attention"], "ms": t_k, "plain_ms": t_p,
             "bound_ms": bound, "bound_by": by, "library_ms": t_l}
     rows.append(flash_rows[(16, 16, 2048)])          # qwen prefill at S=2048
-    page_gather.launches = saved["page_gather"]       # timing launches do not count
-    flash_attention.launches = saved["flash_attention"]
+
+    # decode_attention at the qwen3-1.7b decode shape, on layer 0's cache and
+    # mask as the serving run left them; the bound counts the valid slots
+    kc, vc, valid = decode_inputs
+    B, Hkv, C, d = kc.shape
+    H = DECODE_MAIN[1]
+    q = torch.randn((B, H, d), generator=gen, device=device, dtype=kc.dtype)
+    t_k = cuda_ms(lambda: decode_attention(q, kc, vc, valid))
+    t_p = cuda_ms(lambda: decode_attention_plain(q, kc, vc, valid))
+    mask = valid[:, None, None, :]
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
+    t_k2 = cuda_ms(lambda: decode_attention(q, kc, vc, valid))
+    n_valid = int(valid.sum())
+    esize = kc.element_size()
+    moved = 2 * n_valid * Hkv * d * esize + 2 * B * H * d * esize + valid.numel()
+    ops = 4 * n_valid * H * d
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[str(kc.dtype).split(".")[1]] * 1e3
+    bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    full = 2 * kc.numel() * esize / HBM_BYTES_PER_S * 1e3
+    log(f"[6] decode_attention {str(kc.dtype).split('.')[1]} B{B} H{H}/{Hkv} C{C} d{d}, "
+        f"{n_valid} of {B * C} slots valid: kernel {t_k:.4f} / {t_k2:.4f} ms "
+        f"({moved / (t_k * 1e-3) / 1e9:.1f} GB/s of needed bytes), plain {t_p:.4f} ms, "
+        f"sdpa {t_l:.4f} ms, bound {bound:.5f} ms ({by}); the whole cache would be "
+        f"{full:.5f} ms")
+    rows.append({"name": "decode_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/decode_attention.cu",
+                 "replaces": "src/repro/kernels/decode_attention/kernel.py:72",
+                 "launches": launches["decode_attention"],
+                 "max_abs_err": errs["decode_attention"], "ms": t_k, "plain_ms": t_p,
+                 "bound_ms": bound, "bound_by": by, "library_ms": t_l})
+    for name, n in saved.items():                     # timing launches do not count
+        kernels[name].launches = n
     return rows
 
 
@@ -525,13 +888,17 @@ def main() -> int:
     cfg, qmanager, qimg, qparams = phase_qwen_setup(device)
     check_page_gather(qimg.store, device, errs)
     check_flash(device, errs)
+    check_decode(device, errs)
     with tempfile.TemporaryDirectory(prefix="repro-torch-smoke-") as tmp:
         quick = phase_quickstart(device, tmp)
         qwen = phase_qwen(cfg, qmanager, qimg, qparams, device)
         del qparams
-        launches = {k: quick[k] + qwen[k] for k in quick}
-        rows = phase_times(qimg, device, errs, launches)
+        serving = phase_serving(device)
+        launches = {k: quick.get(k, 0) + qwen.get(k, 0) + serving["counts"][k]
+                    for k in serving["counts"]}
+        rows = phase_times(qimg, device, errs, launches, serving.pop("decode_inputs"))
         phase_qwen_coldstart(cfg, qmanager, device, tmp)
+    log(f"[7] serving summary: {json.dumps({k: v for k, v in serving.items() if k != 'counts'})}")
     log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(card, flush=True)

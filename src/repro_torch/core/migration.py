@@ -185,13 +185,17 @@ class RestoredImage:
         self.stats.stream_s += time.perf_counter() - t0
 
     def _start_background_stream(self, skip: Sequence[str] = ()) -> None:
-        with self._claim_lock:             # two first-faults must not both stream
+        # Two first-faults must not both stream, and a caller that finds the
+        # stream started (wait_all) must find it running: the thread is
+        # started and published under the lock.
+        with self._claim_lock:
             if self._streaming_started:
                 return
             self._streaming_started = True
-        self._stream_thread = threading.Thread(
-            target=self._stream_all, args=(tuple(skip),), daemon=True)
-        self._stream_thread.start()
+            thread = threading.Thread(
+                target=self._stream_all, args=(tuple(skip),), daemon=True)
+            thread.start()
+            self._stream_thread = thread
 
     # -- the fault path ------------------------------------------------------------
     def fault(self, key: str) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Parameter trees without ``jax.tree_util``: flatten, unflatten and key paths.
 
-A tree is nested ``dict`` / ``tuple`` / ``list`` containers whose leaves are
-tensors or arrays; ``None`` is an empty node. Flattening reproduces JAX's
+A tree is nested ``dict`` / ``tuple`` / ``list`` / named-tuple containers
+whose leaves are tensors or arrays; ``None`` is an empty node. Flattening reproduces JAX's
 order exactly (dict keys sorted, sequences by index, empty containers give no
 leaves) and each leaf's key is spelled as ``jax.tree_util.keystr`` spells it
-(``['unit'][0]['attn']['wq']``), so a page table built by either package
+(``['unit'][0]['attn']['wq']``; a named tuple's field as ``.k_pos``), so a
+page table built by either package
 names the same leaves in the same order. ``str(TreeDef)`` prints the same text
 as JAX's ``PyTreeDef`` and :meth:`TreeDef.from_repr` parses it back, so an
 image written by the JAX package restores here with its own structure.
@@ -12,15 +13,27 @@ image written by the JAX package restores here with its own structure.
 from __future__ import annotations
 
 import ast
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Tuple
 
 LEAF = ...   # placeholder for a leaf inside a TreeDef's skeleton
+
+
+def _is_namedtuple(node: Any) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def _rebuild(node: Any, kids) -> Any:
+    """A container of ``node``'s type holding ``kids`` (a named tuple takes
+    them as positional fields)."""
+    return type(node)(*kids) if _is_namedtuple(node) else type(node)(kids)
 
 
 def _children(node: Any):
     """(key token, child) pairs of a container in JAX's flatten order."""
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (tuple, list)):
         return [(f"[{i}]", c) for i, c in enumerate(node)]
     return None
@@ -48,6 +61,24 @@ def leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in flatten_with_keys(tree)]
 
 
+def map_with_path(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``jax.tree_util.tree_map_with_path``: ``fn(keystr, leaf, *others)`` on
+    every leaf, the others taken from ``rest`` trees of the same structure;
+    returns a tree of the results with ``tree``'s containers."""
+    def walk(node: Any, others: Tuple[Any, ...], prefix: str) -> Any:
+        if node is None:
+            return None
+        kids = _children(node)
+        if kids is None:
+            return fn(prefix, node, *others)
+        if isinstance(node, dict):
+            return {k: walk(node[k], tuple(o[k] for o in others), prefix + f"[{k!r}]")
+                    for k in sorted(node)}
+        return _rebuild(node, [walk(c, tuple(o[i] for o in others), prefix + tok)
+                               for i, (tok, c) in enumerate(kids)])
+    return walk(tree, rest, "")
+
+
 class TreeDef:
     """The structure of a tree: its containers with every leaf replaced by
     :data:`LEAF`."""
@@ -63,7 +94,7 @@ class TreeDef:
             if isinstance(node, dict):
                 return {k: strip(v) for k, v in node.items()}
             if isinstance(node, (tuple, list)):
-                return type(node)(strip(c) for c in node)
+                return _rebuild(node, [strip(c) for c in node])
             return LEAF
         return cls(strip(tree))
 
@@ -95,7 +126,7 @@ class TreeDef:
                 return None
             if isinstance(node, dict):
                 return {k: build(node[k]) for k in sorted(node)}
-            return type(node)(build(c) for c in node)
+            return _rebuild(node, [build(c) for c in node])
 
         tree = build(self.skeleton)
         if next(it, LEAF) is not LEAF:

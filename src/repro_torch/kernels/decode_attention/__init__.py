@@ -1,0 +1,7 @@
+"""Flash decode (port of ``repro.kernels.decode_attention``)."""
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    decode_attention_plain,
+)
+
+__all__ = ["decode_attention", "decode_attention_plain"]

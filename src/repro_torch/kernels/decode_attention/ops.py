@@ -1,0 +1,145 @@
+"""Flash decode: one new query token per (batch, head) against a KV cache.
+
+Replaces the TPU kernel ``src/repro/kernels/decode_attention/kernel.py``
+(``decode_attention_pallas``), with its contract: q ``(B, H, d)``, k/v cache
+``(B, Hkv, S, d)`` of one dtype, a validity mask, optional softcap and scale,
+GQA by ``h -> h // g``, fp32 online softmax, output in ``q.dtype``, masked
+logits at the finite ``NEG_INF``. The mask is ``(S,)`` as in the reference, or
+``(B, S)``, one row per batch entry, as the model's per-slot ring positions
+need (``models/attention.py`` builds it from ``k_pos``).
+
+On the card it is bound by bytes: each decode step streams the cache once. The
+CUDA kernel (``csrc/decode_attention.cu``) reads each K/V row once with 16-byte
+loads and computes all ``g`` grouped heads from it, keeps the online softmax in
+registers, skips steps of a row whose slots are all invalid, and splits the
+cache across blocks so a small decode batch still fills the card; a second
+kernel merges the splits.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.build import check, library
+
+NEG_INF = -2.0e38
+HEAD_DIMS = (32, 64, 128)
+GROUPS = (1, 2, 4, 8)
+SPLIT_ALIGN = 64                 # split lengths are multiples of this many slots
+BLOCKS_PER_SM = 2                # the split count aims at this many blocks per SM
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_count_lock = threading.Lock()
+
+
+def decode_attention_plain(q, k_cache, v_cache, valid, *, softcap=None,
+                           scale=None) -> torch.Tensor:
+    """Plain PyTorch version, mirroring ``decode_attention/ref.py``: fp32
+    einsum, softcap, finite ``NEG_INF`` mask, softmax, einsum, cast. ``valid``
+    is ``(S,)`` or ``(B, S)``."""
+    B, H, d = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    g = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(B, Hkv, g, d).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = valid.bool().reshape(-1 if valid.dim() == 2 else 1, 1, 1, S)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
+    return out.reshape(B, H, d).to(q.dtype)
+
+
+def plan_splits(B: int, Hkv: int, S: int, n_sms: int) -> Tuple[int, int]:
+    """``(n_splits, split_len)``: cut the cache into ranges of ``split_len``
+    slots (a multiple of :data:`SPLIT_ALIGN`) so that ``B * Hkv * n_splits``
+    blocks give about :data:`BLOCKS_PER_SM` per SM."""
+    chunks = -(-S // SPLIT_ALIGN)
+    want = max(1, -(-BLOCKS_PER_SM * n_sms // (B * Hkv)))
+    n = min(want, chunks)
+    split_len = -(-chunks // n) * SPLIT_ALIGN
+    return -(-S // split_len), split_len
+
+
+def _launch_fn():
+    fn = library("decode_attention").decode_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     valid: torch.Tensor, *, softcap: Optional[float] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of q ``(B, H, d)`` over a cache ``(B, Hkv, S, d)`` where
+    ``valid`` (``(S,)`` or ``(B, S)``, bool or integer) marks the live slots.
+
+    CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch the
+    kernel (contiguous, 16-byte aligned fp32 or bf16, d in 32/64/128, g in
+    1/2/4/8), counted in ``decode_attention.launches``.
+    """
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"want q (B,H,d) and k/v (B,Hkv,S,d), got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, H, d = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != B or k_cache.shape[3] != d or Hkv == 0 or H % Hkv:
+        raise ValueError(f"incompatible q {tuple(q.shape)} and cache "
+                         f"{tuple(k_cache.shape)}")
+    if S == 0:
+        raise ValueError("attention over an empty cache is undefined")
+    if tuple(valid.shape) not in ((S,), (B, S)):
+        raise ValueError(f"valid must be ({S},) or ({B}, {S}), got {tuple(valid.shape)}")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype):
+        raise TypeError(f"q and cache dtypes differ: {q.dtype}, {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
+    if not (q.device == k_cache.device == v_cache.device == valid.device):
+        raise ValueError("q, cache and mask must be on one device")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, valid, softcap=softcap,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS or H // Hkv not in GROUPS:
+        raise ValueError(f"the kernel takes head dim in {HEAD_DIMS} and H/Hkv in "
+                         f"{GROUPS}, got d={d}, H/Hkv={H // Hkv}")
+    tensors = (q, k_cache, v_cache)
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("q and the cache must be contiguous and 16-byte aligned")
+    if B * Hkv > 65535:
+        raise ValueError(f"B*Hkv = {B * Hkv} exceeds the grid limit 65535")
+    mask = (valid if valid.dtype == torch.bool else valid != 0).contiguous().view(
+        torch.uint8)
+    n_splits, split_len = plan_splits(
+        B, Hkv, S, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    out = torch.empty_like(q)
+    part = (torch.empty(B * H * n_splits * (d + 2), dtype=torch.float32,
+                        device=q.device) if n_splits > 1 else None)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    fn = _launch_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                    mask.data_ptr(), out.data_ptr(),
+                    part.data_ptr() if part is not None else None,
+                    B, H, Hkv, S, d, _DTYPE_CODES[q.dtype],
+                    S if valid.dim() == 2 else 0, float(scale),
+                    int(softcap is not None),
+                    float(softcap) if softcap is not None else 0.0,
+                    n_splits, split_len, stream)
+    check(status, "decode_attention")
+    with _count_lock:
+        decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,21 +1,37 @@
-"""GQA attention, prefill path (port of ``repro.models.attention``).
+"""GQA attention: prefill and single-token decode (port of ``repro.models.attention``).
 
 Covers full causal ("global") and sliding-window ("local") layers, attention
-logit softcapping, per-head qk RMSNorm and QKV bias. The attention core is the
-flash-attention kernel (``kernels/flash_attention``), where the reference
-docstring places it: the JAX package serves prefill with its jnp blockwise
-path, the port with the kernel. Decode, the KV cache and cross attention come
-with the decode slice.
+logit softcapping, per-head qk RMSNorm and QKV bias. The attention cores are
+the port's kernels, where the reference docstring places them: prefill runs
+``kernels/flash_attention`` (the JAX package serves it with its jnp blockwise
+path), decode runs ``kernels/decode_attention``.
+
+KV caches are ring buffers of capacity C (``min(window, seq)`` for local
+layers, ``seq`` for global) with an explicit per-slot logical position array
+``k_pos`` (-1 = empty), laid out ``(B, Hkv, C, hd)`` as in the reference; the
+decode mask is computed from positions, so ring wraparound needs no special
+case and each batch row keeps its own position stream.
+
+Dtypes: where activations and cache or weights differ, the port promotes as
+JAX does (``layers.promote`` / ``layers.matmul``). Cross attention comes with
+the encoder-decoder family.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import LOCAL_ATTN, ArchConfig
-from repro_torch.models.layers import _he, _zeros, apply_rope
+from repro_torch.models.layers import _he, _zeros, apply_rope, matmul, promote
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, Hkv, C, hd)
+    v: torch.Tensor       # (B, Hkv, C, hd)
+    k_pos: torch.Tensor   # (B, C) int32 logical position per slot, -1 = empty
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, lead=(), *,
@@ -46,9 +62,9 @@ def _qk_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tenso
 def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig):
     """Returns q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd)."""
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = xq @ params["wq"]
-    k = xkv @ params["wk"]
-    v = xkv @ params["wv"]
+    q = matmul(xq, params["wq"])
+    k = matmul(xkv, params["wk"])
+    v = matmul(xkv, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(*xq.shape[:-1], h, hd)
@@ -60,6 +76,109 @@ def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchCon
     return q, k, v
 
 
+# ---------------------------------------------------------------------------------
+# Cache construction / update
+# ---------------------------------------------------------------------------------
+
+def cache_capacity(cfg: ArchConfig, layer_type: str, seq_len: int) -> int:
+    if layer_type == LOCAL_ATTN:
+        return min(cfg.window, seq_len)
+    return seq_len
+
+
+def build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, capacity: int) -> KVCache:
+    """Ring-aligned cache from prefill keys: position p lives at slot p % C.
+    k/v arrive as (B, S, Hkv, hd); the cache stores (B, Hkv, C, hd)."""
+    B, S, Hkv, hd = k.shape
+    C = capacity
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)          # (B, Hkv, S, hd)
+    dev = k.device
+    if C >= S:
+        kc = k.new_zeros((B, Hkv, C, hd))
+        vc = v.new_zeros((B, Hkv, C, hd))
+        kc[:, :, :S] = kt
+        vc[:, :, :S] = vt
+        k_pos = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
+                           torch.full((C - S,), -1, dtype=torch.int32, device=dev)])
+    else:
+        shift = S % C
+        kc = torch.roll(kt[:, :, S - C:], shift, dims=2).contiguous()
+        vc = torch.roll(vt[:, :, S - C:], shift, dims=2).contiguous()
+        k_pos = torch.roll(torch.arange(S - C, S, dtype=torch.int32, device=dev), shift)
+    return KVCache(kc, vc, k_pos.expand(B, C).contiguous())
+
+
+def empty_cache(cfg: ArchConfig, layer_type: str, batch: int, seq_len: int, dtype,
+                device=None) -> KVCache:
+    C = cache_capacity(cfg, layer_type, seq_len)
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return KVCache(
+        torch.zeros((batch, hk, C, hd), dtype=dtype, device=device),
+        torch.zeros((batch, hk, C, hd), dtype=dtype, device=device),
+        torch.full((batch, C), -1, dtype=torch.int32, device=device),
+    )
+
+
+def _positions(pos, batch: int, device) -> torch.Tensor:
+    """``pos`` (scalar or (B,)) as a (B,) int64 tensor on ``device``."""
+    return torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1).expand(batch)
+
+
+def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, pos) -> KVCache:
+    """Write one token per batch row at its ring slot ``pos_b % C`` (per-slot
+    positions: continuous batching). k_new/v_new: (B, 1, Hkv, hd); pos: scalar
+    or (B,).
+
+    The reference builds a new cache with a masked select; the port writes the
+    slot in place (three small index writes instead of a copy of the cache per
+    layer per step) and returns the same, updated cache.
+    """
+    B, Hkv, C, hd = cache.k.shape
+    pos_b = _positions(pos, B, cache.k.device)
+    slot = pos_b % C
+    rows = torch.arange(B, device=cache.k.device)
+    cache.k[rows, :, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[rows, :, slot] = v_new[:, 0].to(cache.v.dtype)
+    cache.k_pos[rows, slot] = pos_b.to(torch.int32)
+    return cache
+
+
+def decode_valid(k_pos: torch.Tensor, pos, window: Optional[int]) -> torch.Tensor:
+    """(B, C) bool: the slots the new token at ``pos`` attends to, from the
+    slots' logical positions (ring wraparound safe, per batch row)."""
+    pos_b = _positions(pos, k_pos.shape[0], k_pos.device)[:, None]
+    valid = (k_pos >= 0) & (k_pos <= pos_b)
+    if window is not None:
+        valid &= (pos_b - k_pos) < window
+    return valid
+
+
+def decode_attention(
+    q: torch.Tensor,              # (B, 1, H, hd)
+    cache: KVCache,
+    pos,                          # int scalar or (B,): position of the new token
+    *,
+    window: Optional[int],
+    attn_softcap: Optional[float],
+    decode_fn: Callable = decode_kernel,
+) -> torch.Tensor:
+    """The new token's attention over the cache -> (B, 1, H, hd).
+
+    ``decode_fn`` is the core over q (B, H, hd) and the cache: the kernel
+    wrapper by default, or its plain version to check the kernel path. q and
+    the cache enter it in their promoted dtype.
+    """
+    B, _, H, hd = q.shape
+    valid = decode_valid(cache.k_pos, pos, window)
+    qh, k, v = promote(q[:, 0].contiguous(), cache.k, cache.v)
+    out = decode_fn(qh, k, v, valid, softcap=attn_softcap)
+    return out.reshape(B, 1, H, hd)
+
+
+# ---------------------------------------------------------------------------------
+# Full attention sublayer (projections + rope + core + out-projection)
+# ---------------------------------------------------------------------------------
+
 def attention_prefill(
     params: dict,
     x: torch.Tensor,                # (B, S, D)
@@ -69,8 +188,11 @@ def attention_prefill(
     *,
     causal: bool = True,
     attention_fn: Callable = flash_attention,
-) -> torch.Tensor:
-    """Projections + rope + attention core + out-projection -> (B, S, D).
+    make_cache: bool = False,
+    state_len: Optional[int] = None,   # total cache capacity (prompt + generation)
+):
+    """Projections + rope + attention core + out-projection -> (B, S, D), or
+    ``(out, KVCache)`` with ``make_cache``.
 
     ``attention_fn`` is the core over (B, H, S, hd) tensors: the kernel
     wrapper by default, or its plain version to check the kernel path.
@@ -83,5 +205,32 @@ def attention_prefill(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(),
         causal=causal, window=window, softcap=cfg.attn_logit_softcap)
-    out = out.transpose(1, 2).reshape(*x.shape[:-1], -1)
-    return out @ params["wo"]
+    out = matmul(out.transpose(1, 2).reshape(*x.shape[:-1], -1), params["wo"])
+    if not make_cache:
+        return out
+    cap = cache_capacity(cfg, layer_type, max(state_len or 0, x.shape[1]))
+    return out, build_cache_from_prefill(k, v, cap)
+
+
+def attention_decode(
+    params: dict,
+    x: torch.Tensor,                # (B, 1, D)
+    cache: KVCache,
+    pos,                            # int scalar or (B,)
+    cfg: ArchConfig,
+    layer_type: str,
+    *,
+    decode_fn: Callable = decode_kernel,
+):
+    """One token's attention sublayer -> ``(out (B, 1, D), cache)``; the
+    cache is updated in place (:func:`update_cache`)."""
+    q, k, v = _project_qkv(params, x, x, cfg)
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    pos_arr = pos_t.reshape(-1, 1) if pos_t.dim() else pos_t[None]     # (B,1) | (1,)
+    q = apply_rope(q, pos_arr, cfg.rope_theta)
+    k = apply_rope(k, pos_arr, cfg.rope_theta)
+    cache = update_cache(cache, k, v, pos_t)
+    window = cfg.window if layer_type == LOCAL_ATTN else None
+    out = decode_attention(q, cache, pos_t, window=window,
+                           attn_softcap=cfg.attn_logit_softcap, decode_fn=decode_fn)
+    return matmul(out.reshape(*x.shape[:-1], -1), params["wo"]), cache

@@ -16,6 +16,24 @@ import torch.nn.functional as F
 from repro_torch.models.config import ArchConfig
 
 
+def promote(*xs: torch.Tensor):
+    """``xs`` cast to their common dtype, as JAX's type promotion would
+    (``torch.promote_types``; fp32 with bf16 gives fp32). Tensors already of
+    that dtype are returned as they are."""
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return tuple(x if x.dtype == dtype else x.to(dtype) for x in xs)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype: where an fp32 activation meets a bf16
+    weight the product runs in fp32, as in JAX (PyTorch's ``@`` refuses mixed
+    dtypes). Equal dtypes take ``x @ w`` unchanged."""
+    x, w = promote(x, w)
+    return x @ w
+
+
 def _he(gen: torch.Generator, shape, scale_dim: int, dtype) -> torch.Tensor:
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
@@ -83,10 +101,10 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, dtype, lead=()) -> dict:
 
 def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
-        gate = x @ params["w_gate"]
+        gate = matmul(x, params["w_gate"])
         act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
-        return (act * (x @ params["w_in"])) @ params["w_out"]
-    return F.gelu(x @ params["w_in"], approximate="tanh") @ params["w_out"]
+        return matmul(act * matmul(x, params["w_in"]), params["w_out"])
+    return matmul(F.gelu(matmul(x, params["w_in"]), approximate="tanh"), params["w_out"])
 
 
 # ---------------------------------------------------------------------------------
@@ -114,10 +132,11 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.T
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Logits in fp32; the product runs in the parameter dtype and is cast
-    afterwards, as in the reference."""
+    """Logits in fp32; the product runs in the parameter dtype (the promoted
+    one where the activations are wider) and is cast afterwards, as in the
+    reference."""
     table = params["head"] if "head" in params else params["tok"].T
-    logits = (x @ table).float()
+    logits = matmul(x, table).float()
     return softcap(logits, cfg.final_logit_softcap)
 
 

@@ -1,4 +1,4 @@
-"""Dense decoder-only transformer: init and prefill forward.
+"""Dense decoder-only transformer: init, prefill forward and single-token decode.
 
 Port of ``repro.models.transformer`` for the dense family: GLOBAL/LOCAL
 attention layers with a dense MLP. Parameters keep the reference layout, so a
@@ -7,7 +7,9 @@ pattern unit stacked along a leading ``n_units`` axis in ``params["unit"]``
 (a tuple, one dict per pattern position), remainder layers in
 ``params["rem"]``. JAX's ``vmap`` init draws the stacked leaves directly
 here, and its ``lax.scan`` over units is a Python loop that indexes the
-stacked leaves by unit.
+stacked leaves by unit. The decode state keeps the same layout: per pattern
+position a :class:`~repro_torch.models.attention.KVCache` whose leaves carry a
+leading ``n_units`` axis, per remainder layer an unstacked one, and ``pos``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn
 from repro_torch.models.config import GLOBAL_ATTN, LOCAL_ATTN, ArchConfig
@@ -70,12 +73,22 @@ def _index(tree: Any, i: int) -> Any:
 
 
 def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str,
-                 positions: torch.Tensor, attention_fn: Callable) -> torch.Tensor:
+                 positions: torch.Tensor, attention_fn: Callable,
+                 make_state: bool = False, state_len: Optional[int] = None):
+    """Returns ``(x, KVCache)``, the cache None unless ``make_state``."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn.attention_prefill(p["attn"], h, cfg, ltype, positions,
-                                   causal=True, attention_fn=attention_fn)
+    out = attn.attention_prefill(p["attn"], h, cfg, ltype, positions, causal=True,
+                                 attention_fn=attention_fn, make_cache=make_state,
+                                 state_len=state_len)
+    out, cache = out if make_state else (out, None)
+    x = x + out
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.mlp)
+    return x + mlp(p["mlp"], h, cfg.mlp), cache
+
+
+def _stack(states):
+    """Per-unit caches -> one cache whose leaves lead with the unit axis."""
+    return attn.KVCache(*(torch.stack(leaves) for leaves in zip(*states)))
 
 
 def forward(
@@ -86,24 +99,115 @@ def forward(
     logits_slice: Optional[int] = None,     # keep only the last N positions' logits
     return_features: bool = False,          # skip unembed
     attention_fn: Callable = flash_attention,
-) -> torch.Tensor:
+    make_state: bool = False,
+    state_len: Optional[int] = None,        # decode-state capacity (prompt + budget)
+):
     """Logits fp32 (B, S, Vp), or features (B, S, D) with ``return_features``.
 
-    The reference also returns an aux loss and a decode state; the dense
-    prefill path has no aux loss and the decode state comes with the decode
-    slice.
+    With ``make_state`` it returns ``(logits, state)``: the decode state
+    ``{"unit", "rem", "pos"}`` laid out as the reference's, caches sized for
+    ``state_len`` positions. The reference also returns an aux loss, which the
+    dense path does not have.
     """
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, cfg)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    unit_states = [[] for _ in cfg.attn_pattern]
     for u in range(cfg.n_pattern_units):
         for i, ltype in enumerate(cfg.attn_pattern):
-            x = _apply_layer(_index(params["unit"][i], u), x, cfg, ltype, positions,
-                             attention_fn)
+            x, st = _apply_layer(_index(params["unit"][i], u), x, cfg, ltype,
+                                 positions, attention_fn, make_state, state_len)
+            unit_states[i].append(st)
+    rem_states = []
     for i, p in enumerate(params.get("rem", ())):
         ltype = cfg.attn_pattern[i % len(cfg.attn_pattern)]
-        x = _apply_layer(p, x, cfg, ltype, positions, attention_fn)
+        x, st = _apply_layer(p, x, cfg, ltype, positions, attention_fn, make_state,
+                             state_len)
+        rem_states.append(st)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    return x if return_features else unembed(params["embed"], x, cfg)
+    out = x if return_features else unembed(params["embed"], x, cfg)
+    if not make_state:
+        return out
+    state = {"unit": tuple(_stack(s) for s in unit_states),
+             "rem": tuple(rem_states),
+             "pos": torch.full((tokens.shape[0],), S, dtype=torch.int32,
+                               device=x.device)}
+    return out, state
+
+
+# ---------------------------------------------------------------------------------
+# Single-token decode
+# ---------------------------------------------------------------------------------
+
+def _apply_layer_decode(p: Dict[str, Any], x: torch.Tensor, st: attn.KVCache,
+                        pos: torch.Tensor, cfg: ArchConfig, ltype: str,
+                        decode_fn: Callable = decode_attention):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    out, st = attn.attention_decode(p["attn"], h, st, pos, cfg, ltype,
+                                    decode_fn=decode_fn)
+    x = x + out
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], h, cfg.mlp), st
+
+
+def _empty_layer_state(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dtype,
+                       device=None) -> attn.KVCache:
+    return attn.empty_cache(cfg, ltype, batch, seq_len, dtype, device)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int,
+                      dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """An empty decode state for ``batch`` slots of ``seq_len`` positions on
+    ``device`` (default: the current default device, the CPU unless set)."""
+    check_supported(cfg)
+    n_units = cfg.n_pattern_units
+    unit = tuple(
+        attn.KVCache(*(leaf.expand(n_units, *leaf.shape).contiguous() for leaf in
+                       _empty_layer_state(cfg, t, batch, seq_len, dtype, device)))
+        for t in cfg.attn_pattern)
+    rem = tuple(
+        _empty_layer_state(cfg, cfg.attn_pattern[i % len(cfg.attn_pattern)], batch,
+                           seq_len, dtype, device)
+        for i in range(cfg.n_remainder_layers))
+    return {"unit": unit, "rem": rem,
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step(
+    params: Dict[str, Any],
+    state: Dict[str, Any],
+    token: torch.Tensor,                    # (B, 1) integer
+    cfg: ArchConfig,
+    *,
+    decode_fn: Callable = decode_attention,
+):
+    """One autoregressive step. Returns ``(logits fp32 (B, Vp), new_state)``.
+
+    The caches are updated in place: the returned state holds the same cache
+    tensors as ``state`` (with ``pos`` advanced in a new tensor), so a caller
+    that needs the old state clones it first. ``decode_fn`` is the attention
+    core (kernel wrapper by default, or its plain version).
+    """
+    check_supported(cfg)
+    pos = state["pos"]                                    # (B,) per-slot positions
+    x = embed_tokens(params["embed"], token, cfg)
+    for u in range(cfg.n_pattern_units):
+        for i, ltype in enumerate(cfg.attn_pattern):
+            st = attn.KVCache(*(leaf[u] for leaf in state["unit"][i]))   # views
+            x, _ = _apply_layer_decode(_index(params["unit"][i], u), x, st, pos, cfg,
+                                       ltype, decode_fn)
+    new_rem = []
+    for i in range(cfg.n_remainder_layers):
+        ltype = cfg.attn_pattern[i % len(cfg.attn_pattern)]
+        x, st = _apply_layer_decode(params["rem"][i], x, state["rem"][i], pos, cfg,
+                                    ltype, decode_fn)
+        new_rem.append(st)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg)[:, 0]       # (B, Vp)
+    new_state = dict(state)                               # "unit" updated in place
+    new_state["rem"] = tuple(new_rem)
+    new_state["pos"] = pos + 1
+    return logits, new_state

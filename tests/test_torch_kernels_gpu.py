@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (
+    decode_attention,
+    decode_attention_plain,
     flash_attention,
     flash_attention_plain,
     page_gather,
@@ -25,6 +27,12 @@ FLASH_ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap): tests/test_kernels
     (1, 8, 2, 320, 64, True, 100, 30.0),
     (1, 16, 16, 2048, 64, True, None, None),      # qwen1.5-0.5b prefill
     (1, 2, 2, 70, 64, True, 0, None),             # every key masked
+]
+DECODE_ROWS = [  # (B, H, Hkv, S, d, softcap): tests/test_kernels.py:50-54
+    (2, 4, 2, 300, 64, None),
+    (1, 8, 1, 512, 128, 50.0),
+    (4, 2, 2, 64, 32, None),
+    (4, 16, 8, 4096, 128, None),                  # qwen3-1.7b decode, 4 slots
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -73,3 +81,42 @@ def test_flash_attention_kernel_matches_plain(dtype):
         assert out.dtype == dtype and torch.isfinite(out.float()).all()
         np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                    atol=tol, rtol=tol)
+
+
+def _decode_masks(rng, B, S):
+    """An (S,) mask, a (B, S) ring mask with a window, and one with an
+    all-invalid row."""
+    shared = rng.random(S) < 0.7
+    shared[0] = True
+    k_pos = np.full((B, S), -1)
+    for b in range(B):
+        n = int(rng.integers(1, 3 * S // 2))          # some rows wrap the ring
+        pos = np.arange(max(0, n - S), n)
+        k_pos[b, pos % S] = pos
+    now = k_pos.max(1, keepdims=True)
+    ring = (k_pos >= 0) & (k_pos <= now) & (now - k_pos < max(S // 3, 1))
+    empty = ring.copy()
+    empty[-1] = False
+    return [shared, ring, empty]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(dtype):
+    dev = _card()
+    rng = np.random.default_rng(11)
+    tol = TOL[dtype]
+    for (B, H, Hkv, S, d, cap) in DECODE_ROWS:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(dtype).to(dev)
+                   for shape in ((B, H, d), (B, Hkv, S, d), (B, Hkv, S, d)))
+        for valid in _decode_masks(rng, B, S):
+            valid = torch.from_numpy(valid).to(dev)
+            before = decode_attention.launches
+            out = decode_attention(q, k, v, valid, softcap=cap)
+            torch.cuda.synchronize()
+            assert decode_attention.launches == before + 1
+            ref = decode_attention_plain(q, k, v, valid, softcap=cap)
+            assert out.dtype == dtype and torch.isfinite(out.float()).all()
+            np.testing.assert_allclose(out.float().cpu().numpy(),
+                                       ref.float().cpu().numpy(), atol=tol, rtol=tol)
