@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's HotSwap cold-start and serving paths on the card and checks
-them:
+Drives the port's HotSwap cold-start and serving paths on the card, for the
+dense and the recurrent families, and checks them:
 
 1. environment: card name and power limit, torch and CUDA versions;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a),
    one nvcc per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the paths give it (page_gather bitwise; flash_attention and
-   decode_attention within 2e-2 for bf16 and 2e-5 for fp32);
+   decode_attention within 2e-2 for bf16 and 2e-5 for fp32, including
+   recurrentgemma's d=256, g=10 layers; diag_recurrence within 1e-4 at the
+   reference's sweep and at the RG-LRU and SSM-chunk shapes, h0 != 0);
 4. the quickstart loop: three model images in one pool, two tenants per
    serving workload, baseline / warmswap under all four restore policies /
    prebaked, all giving equal classes;
@@ -19,27 +21,40 @@ them:
    NO_PAGESERVER, restored leaves bitwise equal to the originals, prefill at
    S=64 and S=2048 with equal logits, and the kernel path against the plain
    path;
-6. kernel times (CUDA events around 10 back-to-back calls, median of 20 runs
-   after warm-up) beside their bound,
-   their plain version and one library call, and qwen cold-start totals;
+6. kernel times (CUDA events around back-to-back calls, median of the runs
+   after warm-up) beside their bound, their plain version and one library
+   call, and the qwen1.5 cold-start totals;
 7. serving on qwen3-1.7b at full width (28 layers, fp32, 6.9 GB image): a
    ReplicaSet of two replicas brought up from the pool (BULK), each with 4
    slots of 4096 positions, serves 8 requests (prompts of 512-2048 tokens, 64
    new tokens each); one replica is killed and recovered through warmswap,
-   then through baseline (weights drawn anew on the card), and serves one
+   then through baseline (weights copied from host memory), and serves one
    more request. Checks: prefill + decode steps against the full forward,
    the kernel path against the plain path on the first request, and
    continuous batching against a 1-slot engine, each within 1e-3 of the
-   largest |logit| (fp32, different product orders).
+   largest |logit| (fp32, different product orders);
+8. falcon-mamba-7b at full width and depth (64 SSM layers, bf16, a 14.5 GB
+   image): restored under BULK and NO_PAGESERVER bitwise equal, cold starts
+   through the orchestrator (warmswap median of 3, baseline once: it writes
+   and reads a 14.5 GB checkpoint), a forward at S=2048 through the
+   diag_recurrence kernel against the plain recurrence, profiled, and a
+   prefill of 512 tokens + 8 decode steps against the full forward;
+9. serving on recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU,
+   8 local attention of 10 heads over 1 kv head of 256; fp32), the same run
+   and checks as phase 7.
 
-The launch counters are set to 0 just before each driven path (phases 4, 5
-and 7) and read just after; a kernel the path did not launch fails the run.
-Any failed check exits non-zero. The last line is the JSON device record.
+The launch counters are set to 0 just before each driven path (phases 4, 5,
+7, 8 and 9) and read just after; a kernel the path did not launch fails the
+run. Each phase frees its models before the next. Any failed check exits
+non-zero. The last line is the JSON device record.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,11 +80,30 @@ DECODE_SWEEP = [  # (B, H, Hkv, S, d, softcap) as in tests/test_kernels.py:50-54
     (1, 8, 1, 512, 128, 50.0),
     (4, 2, 2, 64, 32, None),
 ]
-SERVE_ARCH = "qwen3_1_7b"
 SERVE_SLOTS, SERVE_SEQ, SERVE_NEW, SERVE_REQUESTS = 4, 4096, 64, 8
 SERVE_PROMPTS = (512, 2048)          # prompt lengths, drawn uniformly (numpy seed 21)
 DECODE_MAIN = (SERVE_SLOTS, 16, 8, SERVE_SEQ, 128)      # qwen3-1.7b decode: B, H, Hkv, C, d
 SERVE_LOGIT_TOL = 1e-3     # of max |logit|: fp32, products in another order
+FLASH_GRIFFIN = (1, 10, 1, 2048, 256, 2048)   # recurrentgemma local layer: B, H, Hkv, S, d, window
+DECODE_GRIFFIN = (SERVE_SLOTS, 10, 1, 2048, 256)  # its decode: B, H, Hkv, C = window, d
+RECURRENCE_SWEEP = [(2, 100, 64), (1, 256, 32), (3, 17, 130), (1, 64, 2048)]  # test_kernels.py:68-70
+RECURRENCE_MAIN = [(1, 2048, 2560),      # recurrentgemma-2b RG-LRU prefill at S=2048
+                   (1, 256, 131072)]     # falcon-mamba-7b, one SSM chunk (256 x 8192 x 16)
+RECURRENCE_TOL = 1e-4
+FALCON_ARCH = "falcon_mamba_7b"
+FALCON_SEQ = 2048
+FALCON_DECODE = (512, 8)   # prefill length, decode steps held against the full forward
+# of max |logit|, bf16 decode against the bf16 forward: each of the 64 layers
+# rounds its activations to bf16 (2^-8 relative) and a decode step's products
+# (M=1) round other elements than the prefill's (M=512); the fp32 twin below
+# holds the same path to SERVE_LOGIT_TOL
+BF16_DECODE_TOL = 0.1
+FALCON_FP32_LAYERS = 4     # depth of the fp32 twin of falcon-mamba-7b (full width)
+SERVING_KERNELS = {
+    "qwen3_1_7b": ("page_gather", "flash_attention", "decode_attention"),
+    "recurrentgemma_2b": ("page_gather", "flash_attention", "decode_attention",
+                          "diag_recurrence"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -88,6 +122,25 @@ def expect(cond: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_fns() -> dict:
+    from repro_torch.kernels import (decode_attention, diag_recurrence,
+                                     flash_attention, page_gather)
+    return {"page_gather": page_gather, "flash_attention": flash_attention,
+            "decode_attention": decode_attention, "diag_recurrence": diag_recurrence}
+
+
+def free_device(tag: str) -> int:
+    """Drop what the phase left, print its peak device memory and return it."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] peak device memory {peak / 1e9:.2f} GB; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    torch.cuda.reset_peak_memory_stats()
+    return peak
 
 
 def cuda_ms(fn, iters: int = 20, per: int = 10, warmup: int = 3) -> float:
@@ -132,9 +185,8 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all(["page_gather", "flash_attention", "decode_attention"])
-    log(f"[2] built page_gather + flash_attention + decode_attention in "
-        f"{time.perf_counter() - t0:.2f} s")
+    build.build_all(list(kernel_fns()))
+    log(f"[2] built {' + '.join(kernel_fns())} in {time.perf_counter() - t0:.2f} s")
     for name, text in sorted(build.BUILD_LOG.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -189,6 +241,8 @@ def check_flash(device, errs: dict) -> None:
             cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
         cases.append((dtype, 1, 4, 2, 100, 150, 64, True, None, None))   # Sq != Sk
         cases.append((dtype, 1, 2, 2, 70, 70, 64, True, 0, None))        # all masked
+        B, H, Hkv, S, d, window = FLASH_GRIFFIN
+        cases.append((dtype, B, H, Hkv, S, S, d, True, window, None))
     worst = 0.0
     for (dtype, B, H, Hkv, Sq, Sk, d, causal, window, cap) in cases:
         q = torch.randn((B, H, Sq, d), generator=gen, device=device).to(dtype)
@@ -236,7 +290,7 @@ def check_decode(device, errs: dict) -> None:
                                                       decode_attention_plain)
     gen = torch.Generator(device=device).manual_seed(17)
     worst = 0.0
-    shapes = DECODE_SWEEP + [(*DECODE_MAIN, None)]
+    shapes = DECODE_SWEEP + [(*DECODE_MAIN, None), (*DECODE_GRIFFIN, None)]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
@@ -262,6 +316,33 @@ def check_decode(device, errs: dict) -> None:
                 log(f"[3] decode_attention {label}: max |err| {err:.3e} (tol {tol})")
     errs["decode_attention"] = worst
     log(f"[3] decode_attention: {n} cases within tolerance")
+
+
+def check_diag_recurrence(device, errs: dict) -> None:
+    import torch
+    from repro_torch.kernels.diag_recurrence import diag_recurrence, diag_recurrence_plain
+    gen = torch.Generator(device=device).manual_seed(19)
+    worst = 0.0
+    for (B, S, C) in RECURRENCE_SWEEP + RECURRENCE_MAIN:
+        a = torch.rand((B, S, C), generator=gen, device=device) * 0.5 + 0.5
+        b = torch.randn((B, S, C), generator=gen, device=device)
+        h0 = torch.randn((B, C), generator=gen, device=device)
+        h_all, h_final = diag_recurrence(a, b, h0)
+        ref_all, ref_final = diag_recurrence_plain(a, b, h0)
+        sync(device)
+        err = 0.0
+        for out, ref in ((h_all, ref_all), (h_final, ref_final)):
+            diff = (out - ref).abs()
+            err = max(err, float(diff.max()))
+            expect(bool(torch.isfinite(out).all()) and bool(
+                (diff <= RECURRENCE_TOL + RECURRENCE_TOL * ref.abs()).all()),
+                f"diag_recurrence B{B} S{S} C{C}: max |err| {err} over {RECURRENCE_TOL}")
+        expect(torch.equal(h_final, h_all[:, -1]), "h_final is not h_all[:, -1]")
+        if (B, S, C) == RECURRENCE_MAIN[1]:
+            worst = err
+        log(f"[3] diag_recurrence B{B} S{S} C{C} (h0 != 0): max |err| {err:.3e} "
+            f"(tol {RECURRENCE_TOL}); bitwise equal {torch.equal(h_all, ref_all)}")
+    errs["diag_recurrence"] = worst
 
 
 # ---------------------------------------------------------------------------------
@@ -344,7 +425,9 @@ def phase_quickstart(device, tmp: str) -> dict:
 # 5. qwen1.5-0.5b at full width
 # ---------------------------------------------------------------------------------
 
-def _qwen_handler(cfg):
+def _prefill_handler(cfg):
+    """A serving tenant's handler: prefill_logits (forward at B=1, the last
+    position's logits) through the tenant's 16-class head."""
     def handler(params, hw, request, execs):
         import torch
         from repro_torch.models.transformer import forward
@@ -455,15 +538,21 @@ def phase_qwen(cfg, manager, img, original, device) -> dict:
     return counts
 
 
-def phase_qwen_coldstart(cfg, manager, device, tmp: str) -> dict:
+def phase_coldstart(cfg, manager, tmp: str, tag: str, name: str,
+                    baseline_rounds: int = 3) -> dict:
+    """Cold starts of one tenant on ``cfg``'s live image through the
+    orchestrator: warmswap under BULK and NO_PAGESERVER, median of 3, and
+    baseline (the tenant's checkpoint read from disk) ``baseline_rounds``
+    times. Every start's classes must agree."""
     import numpy as np
     from repro_torch.core import (ColdStartConfig, ColdStartOrchestrator,
                                   FunctionRegistry, RestorePolicy)
     from repro_torch.core import workloads as wl
     from repro_torch.models.layers import padded_vocab
 
-    registry = FunctionRegistry(store_dir=f"{tmp}/qwen-store")
+    registry = FunctionRegistry(store_dir=f"{tmp}/{name}-store")
     img = manager._ensure_live(cfg.name)
+    fn_id = f"{name}-tenant"
 
     def head():
         rng = np.random.default_rng(5)
@@ -472,36 +561,49 @@ def phase_qwen_coldstart(cfg, manager, device, tmp: str) -> dict:
                 "bias": np.zeros((16,), np.float32)}
 
     def request():
-        return {"tokens": np.random.default_rng(7).integers(0, 1000, (1, 64),
-                                                             dtype=np.int32)}
+        return {"tokens": np.random.default_rng(7).integers(
+            0, min(1000, cfg.vocab_size), (1, 64), dtype=np.int32)}
 
-    handler = _qwen_handler(cfg)
-    if "qwen-tenant" not in wl.WORKLOADS:      # its first request comes from here
-        wl.WORKLOADS.register("qwen-tenant", wl.Workload(
-            "qwen-tenant", cfg.name, handler, head, request))
-    registry.register("qwen-tenant", cfg.name, head, handler,
-                      base_params_builder=img.params, write_baseline_checkpoint=True)
+    handler = _prefill_handler(cfg)
+    if fn_id not in wl.WORKLOADS:              # its first request comes from here
+        wl.WORKLOADS.register(fn_id, wl.Workload(fn_id, cfg.name, handler, head, request))
+    free = shutil.disk_usage(tmp).free
+    if free < 2 * img.image_bytes:
+        log(f"[{tag}] {name}: baseline not measured: {free} B free under {tmp}, the "
+            f"checkpoint needs about {img.image_bytes} B")
+        baseline_rounds = 0
+    t0 = time.perf_counter()
+    registry.register(fn_id, cfg.name, head, handler, base_params_builder=img.params,
+                      write_baseline_checkpoint=baseline_rounds > 0)
+    ckpt = registry.get(fn_id).checkpoint_path
+    if ckpt:
+        log(f"[{tag}] {name}: baseline checkpoint of {os.path.getsize(ckpt)} B written "
+            f"in {time.perf_counter() - t0:.2f} s ({free} B were free)")
     orch = ColdStartOrchestrator(manager, registry, ColdStartConfig())
     req = request()
     totals = {"baseline": [], "warmswap/bulk": [], "warmswap/no_pageserver": []}
     classes = []
     for rnd in range(3):
-        inst, t = orch.cold_start_baseline("qwen-tenant")
-        totals["baseline"].append(t.total)
-        classes.append(inst.invoke(req)[0])
-        log(f"[6] qwen run {rnd} baseline: {json.dumps(t.as_dict())}")
+        if rnd < baseline_rounds:
+            inst, t = orch.cold_start_baseline(fn_id)
+            totals["baseline"].append(t.total)
+            classes.append(inst.invoke(req)[0])
+            log(f"[{tag}] {name} run {rnd} baseline: {json.dumps(t.as_dict())}")
+            del inst
         for policy in (RestorePolicy.BULK, RestorePolicy.NO_PAGESERVER):
-            inst, t = orch.cold_start_warmswap("qwen-tenant", policy)
+            inst, t = orch.cold_start_warmswap(fn_id, policy)
             totals[f"warmswap/{policy.value}"].append(t.total)
             classes.append(inst.invoke(req)[0])
-            log(f"[6] qwen run {rnd} warmswap/{policy.value}: {json.dumps(t.as_dict())} "
-                f"{inst.migration_stats}")
+            log(f"[{tag}] {name} run {rnd} warmswap/{policy.value}: "
+                f"{json.dumps(t.as_dict())} {inst.migration_stats}")
             del inst
+    if ckpt:
+        os.remove(ckpt)
     expect(all((c == classes[0]).all() for c in classes),
-           "qwen cold starts disagree on classes")
-    out = {k: statistics.median(v) for k, v in totals.items()}
-    log(f"[6] qwen cold start totals, median of 3 (s): {json.dumps(out)}; "
-        f"all runs {json.dumps(totals)}")
+           f"{name} cold starts disagree on classes")
+    out = {k: statistics.median(v) for k, v in totals.items() if v}
+    log(f"[{tag}] {name} cold start totals, median of 3 (baseline: of "
+        f"{baseline_rounds}) (s): {json.dumps(out)}; all runs {json.dumps(totals)}")
     return out
 
 
@@ -509,7 +611,8 @@ def phase_qwen_coldstart(cfg, manager, device, tmp: str) -> dict:
 # 7. serving qwen3-1.7b at full width
 # ---------------------------------------------------------------------------------
 
-def _teacher_forced(params, cfg, prompt, tokens, attention_fn, decode_fn, device):
+def _teacher_forced(params, cfg, prompt, tokens, attention_fn, decode_fn,
+                    recurrence_fn, device):
     """Logits (len(tokens), vocab) of the prompt's prefill and of decode steps
     fed ``tokens[:-1]``, on one path (kernels or their plain versions)."""
     import numpy as np
@@ -517,7 +620,8 @@ def _teacher_forced(params, cfg, prompt, tokens, attention_fn, decode_fn, device
     from repro_torch.models.transformer import decode_step, forward
     toks = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
     logits, st = forward(params, toks, cfg, make_state=True, state_len=SERVE_SEQ,
-                         logits_slice=1, attention_fn=attention_fn)
+                         logits_slice=1, attention_fn=attention_fn,
+                         recurrence_fn=recurrence_fn)
     rows = [logits[0, -1, : cfg.vocab_size].cpu().numpy()]
     for tok in tokens[:-1]:
         lg, st = decode_step(params, st, torch.tensor([[tok]], device=device), cfg,
@@ -548,7 +652,7 @@ def _agree_until_divergence(ref_req, req, tol_rel: float):
     return worst, n, False
 
 
-def profile_decode(eng, device, n_steps: int = 3) -> None:
+def profile_decode(eng, device, tag: str, n_steps: int = 3) -> None:
     """torch.profiler over ``n_steps`` decode steps of an engine's state at
     its full slot count (as the engine runs one, logits copied to the host):
     device busy time against the host's wall clock, and the kernels that take
@@ -574,37 +678,40 @@ def profile_decode(eng, device, n_steps: int = 3) -> None:
             kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(kernels.values())
     if not kernels:
-        log("[7] decode step profile: the profiler saw no kernels; device time not "
+        log(f"[{tag}] decode step profile: the profiler saw no kernels; device time not "
             "measured")
         return
     n_launch = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    log(f"[7] decode step profile ({n_steps} steps, {eng.scfg.max_slots} slots): wall "
+    log(f"[{tag}] decode step profile ({n_steps} steps, {eng.scfg.max_slots} slots): wall "
         f"{wall * 1e3 / n_steps:.3f} ms/step, device busy {busy / n_steps:.3f} ms/step "
         f"(idle share {1 - busy / (wall * 1e3):.4f}), {n_launch / n_steps:.0f} kernels "
         f"per step")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[7]   {ms / n_steps:.4f} ms/step  {name[:110]}")
+        log(f"[{tag}]   {ms / n_steps:.4f} ms/step  {name[:110]}")
 
 
-def phase_serving(device) -> dict:
+def phase_serving(device, arch: str, tag: str) -> dict:
+    """Serve ``arch`` at full width (fp32) through a 2-replica ReplicaSet from
+    the pool, kill and recover one replica, and check the logits."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import DependencyManager, RestorePolicy
     from repro_torch.core.tree import flatten_with_keys, nest
-    from repro_torch.kernels import decode_attention, flash_attention, page_gather
+    from repro_torch.kernels import decode_attention, diag_recurrence, flash_attention
     from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.diag_recurrence import diag_recurrence_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.models.attention import decode_valid
+    from repro_torch.models.attention import KVCache, decode_valid
+    from repro_torch.models.config import LOCAL_ATTN
     from repro_torch.models.layers import padded_vocab
     from repro_torch.models.transformer import decode_step, forward, init_params
     from repro_torch.runtime import ReplicaSet
     from repro_torch.serving import ServeConfig, ServingEngine
     from repro_torch.serving.scheduler import PlacementContext, place_invocation
 
-    cfg = get_config(SERVE_ARCH)
-    kernels = {"page_gather": page_gather, "flash_attention": flash_attention,
-               "decode_attention": decode_attention}
+    cfg = get_config(arch)
+    kernels = {k: v for k, v in kernel_fns().items() if k in SERVING_KERNELS[arch]}
 
     def builder():
         return init_params(torch.Generator(device=device).manual_seed(0), cfg,
@@ -615,8 +722,9 @@ def phase_serving(device) -> dict:
     manager.register_image(cfg.name, cfg.name, builder)
     sync(device)
     table = manager._ensure_live(cfg.name).metadata.page_table
-    log(f"[7] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab "
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers {cfg.attn_pattern} d_model "
+        f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} d_ff "
+        f"{cfg.d_ff} vocab "
         f"{cfg.vocab_size} -> {padded_vocab(cfg)}, fp32: payload {table.nbytes_payload} B "
         f"in {table.n_pages} pages ({manager.pool_bytes()} B live on the card), built "
         f"in {time.perf_counter() - t0:.2f} s")
@@ -647,7 +755,7 @@ def phase_serving(device) -> dict:
     rs = ReplicaSet(manager, cfg.name, cfg, make_engine, n_replicas=2)
     names = sorted(rs.replicas)
     for e in rs.events:
-        log(f"[7] {e.replica} up via {e.method} in {e.seconds:.4f} s")
+        log(f"[{tag}] {e.replica} up via {e.method} in {e.seconds:.4f} s")
     placed = {n: [] for n in names}
     for i in range(len(prompts)):
         placed[place_invocation(names, PlacementContext(
@@ -669,7 +777,7 @@ def phase_serving(device) -> dict:
         toks = sum(len(r.tokens) for r in eng.completed.values())
         total_tokens += toks
         ttft += [r.ttft_s for r in eng.completed.values()]
-        log(f"[7] {name}: {m['completed']} requests (prompts "
+        log(f"[{tag}] {name}: {m['completed']} requests (prompts "
             f"{[len(prompts[i]) for i in placed[name]]}), {toks} tokens in {dt:.3f} s "
             f"({toks / dt:.1f} tok/s), {m['engine_steps']} steps, mean ttft "
             f"{m['mean_ttft_s'] * 1e3:.1f} ms, mean latency {m['mean_latency_s'] * 1e3:.1f} ms")
@@ -690,14 +798,14 @@ def phase_serving(device) -> dict:
     sync(device)
     expect(len(eng.completed[rid].tokens) == SERVE_NEW, "recovered replica did not serve")
     counts = {k: v.launches for k, v in kernels.items()}
-    log(f"[7] launches during the serving path: {counts}")
+    log(f"[{tag}] launches during the serving path: {counts}")
     for name, n in counts.items():
         expect(n > 0, f"{name} was not launched by the serving path")
     out = {"counts": counts, "ttft_ms": statistics.mean(ttft) * 1e3,
            "decode_step_ms": statistics.median(decode_s) * 1e3,
            "tokens_per_s": total_tokens / serve_s, "recover_warmswap_s": warm_s,
            "recover_baseline_s": cold_s}
-    log(f"[7] serving qwen3-1.7b fp32, 2 replicas x {SERVE_SLOTS} slots: mean ttft "
+    log(f"[{tag}] serving {cfg.name} fp32, 2 replicas x {SERVE_SLOTS} slots: mean ttft "
         f"{out['ttft_ms']:.2f} ms, decode step {out['decode_step_ms']:.3f} ms (median of "
         f"{len(decode_s)} steps at up to {SERVE_SLOTS} slots), {out['tokens_per_s']:.1f} "
         f"tok/s overall; recovery warmswap {warm_s:.4f} s vs baseline {cold_s:.4f} s "
@@ -717,20 +825,20 @@ def phase_serving(device) -> dict:
         tol = SERVE_LOGIT_TOL * float(ref.abs().max())
         expect(d <= tol, f"decode step {i} differs from the forward by {d} > {tol}")
         worst = max(worst, d)
-    log(f"[7] prefill {S} + {K} decode steps vs full forward: max |d logit| {worst:.3e} "
+    log(f"[{tag}] prefill {S} + {K} decode steps vs full forward: max |d logit| {worst:.3e} "
         f"(max |logit| {float(full[S:].abs().max()):.3f}, tolerance "
         f"{SERVE_LOGIT_TOL} of it)")
     del full, st
 
     first = served[0]
     kern = _teacher_forced(params, cfg, prompts[0], first.tokens, flash_attention,
-                           decode_attention, device)
-    plain = _teacher_forced(params, cfg, prompts[0], first.tokens,
-                            flash_attention_plain, decode_attention_plain, device)
+                           decode_attention, diag_recurrence, device)
+    plain = _teacher_forced(params, cfg, prompts[0], first.tokens, flash_attention_plain,
+                            decode_attention_plain, diag_recurrence_plain, device)
     d = float(np.abs(kern - plain).max())
     tol = SERVE_LOGIT_TOL * float(np.abs(plain).max())
     agree = float((kern.argmax(-1) == plain.argmax(-1)).mean())
-    log(f"[7] request 0 (prompt {len(prompts[0])}): kernel vs plain path max |d logit| "
+    log(f"[{tag}] request 0 (prompt {len(prompts[0])}): kernel vs plain path max |d logit| "
         f"{d:.3e} (tolerance {tol:.3e}), argmax agreement {agree:.4f}")
     expect(d <= tol, f"kernel path differs from plain path by {d} > {tol}")
 
@@ -743,20 +851,197 @@ def phase_serving(device) -> dict:
         w, n, div = _agree_until_divergence(single.completed[rid], served[i],
                                             SERVE_LOGIT_TOL)
         worst, compared, diverged = max(worst, w), compared + n, diverged + div
-    log(f"[7] continuous batching vs 1-slot engine: {compared} steps compared, max "
+    log(f"[{tag}] continuous batching vs 1-slot engine: {compared} steps compared, max "
         f"|d logit| {worst:.3e}; {diverged} of {SERVE_REQUESTS} requests took another "
         f"token at a near tie")
     del single
 
-    profile_decode(rs.replicas[names[1]], device)
+    profile_decode(rs.replicas[names[1]], device, tag)
 
-    # this run's decode inputs for the timing row: layer 0's cache and mask
+    # this run's decode inputs for the timing row: the first attention
+    # layer's cache and mask
     st = rs.replicas[names[1]].state
-    cache = st["unit"][0]
+    i = next(i for i, c in enumerate(st["unit"]) if isinstance(c, KVCache))
+    cache = st["unit"][i]
+    window = cfg.window if cfg.attn_pattern[i] == LOCAL_ATTN else None
     out["decode_inputs"] = (cache.k[0].clone(), cache.v[0].clone(),
-                            decode_valid(cache.k_pos[0], st["pos"], None))
+                            decode_valid(cache.k_pos[0], st["pos"], window))
     for k, n in counts.items():
         kernels[k].launches = n
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# 8. falcon-mamba-7b at full width and depth
+# ---------------------------------------------------------------------------------
+
+def profile_forward(params, tokens, cfg, tag: str) -> None:
+    """torch.profiler over one forward: device time by kernel, and the shares
+    of the diag_recurrence kernel, of the matrix products and of the rest (the
+    plain-op expansion around the recurrence, norms, convolution)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.transformer import forward
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward(params, tokens, cfg, logits_slice=1)
+        sync(tokens.device)
+        wall = time.perf_counter() - t0
+    kernels: dict = {}
+    n_launch = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            n_launch += 1
+    if not kernels:
+        log(f"[{tag}] forward profile: the profiler saw no kernels; not measured")
+        return
+    busy = sum(kernels.values())
+    rec = sum(ms for k, ms in kernels.items() if "diag_recurrence" in k)
+    gemm = sum(ms for k, ms in kernels.items()
+               if any(w in k.lower() for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma")))
+    log(f"[{tag}] forward profile S={tokens.shape[1]}: wall {wall * 1e3:.3f} ms under the "
+        f"profiler, device busy {busy:.3f} ms (idle share {1 - busy / (wall * 1e3):.4f}), "
+        f"{n_launch} kernels; diag_recurrence {rec:.3f} ms ({rec / busy:.4f}), matrix "
+        f"products {gemm:.3f} ms ({gemm / busy:.4f}), the rest {busy - rec - gemm:.3f} ms "
+        f"({(busy - rec - gemm) / busy:.4f})")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[{tag}]   {ms:.4f} ms  {name[:110]}")
+
+
+def _decode_vs_forward(params, cfg, tokens, tol_rel: float):
+    """Prefill FALCON_DECODE[0] tokens, then FALCON_DECODE[1] decode steps, each
+    step's logits within ``tol_rel`` of max |logit| of the full forward's.
+    Returns (worst |d logit| / max |logit|, argmax agreement)."""
+    from repro_torch.models.transformer import decode_step, forward
+    S, K = FALCON_DECODE
+    full = forward(params, tokens[:, :S + K], cfg)[0]
+    _, st = forward(params, tokens[:, :S], cfg, make_state=True)
+    worst, same = 0.0, 0
+    for i in range(K):
+        lg, st = decode_step(params, st, tokens[:, S + i: S + i + 1], cfg)
+        ref = full[S + i]
+        rel = float((lg[0] - ref).abs().max()) / float(ref.abs().max())
+        expect(rel <= tol_rel, f"{cfg.name} decode step {i} differs from the forward "
+               f"by {rel} of max |logit| > {tol_rel}")
+        worst = max(worst, rel)
+        same += int(lg[0].argmax() == ref.argmax())
+    return worst, same / K
+
+
+def phase_falcon(device, tmp: str) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import DependencyManager, RestorePolicy
+    from repro_torch.core.pages import byte_view
+    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.kernels.diag_recurrence import diag_recurrence_plain
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.transformer import forward, init_params
+
+    tag, cfg = "8", get_config(FALCON_ARCH)
+    kernels = {k: v for k, v in kernel_fns().items()
+               if k in ("page_gather", "diag_recurrence")}
+    keep: dict = {}
+
+    def builder():
+        keep["params"] = init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                     torch.bfloat16)
+        return keep["params"]
+
+    manager = DependencyManager(device=device)
+    t0 = time.perf_counter()
+    manager.register_image(cfg.name, cfg.name, builder)
+    sync(device)
+    img = manager._ensure_live(cfg.name)
+    table = img.metadata.page_table
+    n_params = sum(leaf.numel() for _, leaf in flatten_with_keys(keep["params"]))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} SSM layers d_model {cfg.d_model} d_inner "
+        f"{cfg.d_inner} state {cfg.ssm_state} dt_rank {cfg.resolved_dt_rank} vocab "
+        f"{cfg.vocab_size} -> {padded_vocab(cfg)}, bf16 (fp32 dt_bias/A_log/D): "
+        f"{n_params} parameters, payload {table.nbytes_payload} B in {table.n_pages} "
+        f"pages ({img.image_bytes} B on the card), built in {time.perf_counter() - t0:.2f} s")
+
+    # ---- the main path, counted: restores, cold starts, prefill, decode
+    for k in kernels.values():
+        k.launches = 0
+    ref_leaves = dict(flatten_with_keys(keep.pop("params")))
+    for policy in (RestorePolicy.BULK, RestorePolicy.NO_PAGESERVER):
+        t0 = time.perf_counter()
+        r = manager.request_migration(cfg.name, policy)
+        r.fault(r.metadata.page_table.order[0])
+        got = dict(flatten_with_keys(r.as_pytree()))
+        sync(device)
+        dt = time.perf_counter() - t0
+        manager.release(cfg.name)
+        expect(got.keys() == ref_leaves.keys(), f"{policy.value}: leaf keys differ")
+        for key, leaf in got.items():
+            ref = ref_leaves[key]
+            expect(leaf.dtype == ref.dtype and leaf.shape == ref.shape
+                   and torch.equal(byte_view(leaf), byte_view(ref)),
+                   f"{policy.value}: restored leaf {key} is not bitwise equal")
+        log(f"[{tag}] {policy.value}: {len(got)} leaves restored bitwise equal in "
+            f"{dt * 1e3:.1f} ms ({r.stats})")
+        del got, r
+    del ref_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"coldstart": phase_coldstart(cfg, manager, tmp, tag, "falcon",
+                                        baseline_rounds=1)}
+
+    params = img.params()                 # views into the pool's store
+    gen = torch.Generator(device=device).manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FALCON_SEQ), generator=gen,
+                           device=device)
+    forward(params, tokens[:, :64], cfg)                  # warm-up
+    sync(device)
+    t0 = time.perf_counter()
+    k_logits = forward(params, tokens, cfg)
+    sync(device)
+    out["prefill_s"] = time.perf_counter() - t0
+    expect(k_logits.shape == (1, FALCON_SEQ, padded_vocab(cfg))
+           and bool(torch.isfinite(k_logits).all()),
+           f"falcon logits not finite or of shape {tuple(k_logits.shape)}")
+    worst, agree = _decode_vs_forward(params, cfg, tokens, BF16_DECODE_TOL)
+    sync(device)
+    counts = {k: v.launches for k, v in kernels.items()}
+    log(f"[{tag}] launches during the falcon path: {counts}")
+    for name, n in counts.items():
+        expect(n > 0, f"{name} was not launched by the falcon path")
+    log(f"[{tag}] bf16 prefill {FALCON_DECODE[0]} + {FALCON_DECODE[1]} decode steps vs "
+        f"full forward: max |d logit| / max |logit| {worst:.4e} (tolerance "
+        f"{BF16_DECODE_TOL}), argmax agreement {agree:.4f}")
+
+    # ---- checks and a profile, not counted
+    t0 = time.perf_counter()
+    p_logits = forward(params, tokens, cfg, recurrence_fn=diag_recurrence_plain)
+    sync(device)
+    out["prefill_plain_s"] = time.perf_counter() - t0
+    diff = float((k_logits - p_logits).abs().max())
+    scale = float(p_logits.abs().max())
+    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
+    log(f"[{tag}] S={FALCON_SEQ} forward: kernel path {out['prefill_s']:.4f} s, plain "
+        f"recurrence {out['prefill_plain_s']:.4f} s; max |d logit| {diff:.4e} (max |logit| "
+        f"{scale:.4e}), torch.equal {torch.equal(k_logits, p_logits)}, argmax agreement "
+        f"{agree:.4f}")
+    expect(diff <= SERVE_LOGIT_TOL * scale, f"falcon kernel path differs from the plain "
+           f"path by {diff} > {SERVE_LOGIT_TOL} * max|logit|")
+    del k_logits, p_logits
+    profile_forward(params, tokens, cfg, tag)
+    del params, img, manager
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = dataclasses.replace(cfg, n_layers=FALCON_FP32_LAYERS)
+    twin_params = init_params(torch.Generator(device=device).manual_seed(0), twin,
+                              torch.float32)
+    worst, agree = _decode_vs_forward(twin_params, twin, tokens, SERVE_LOGIT_TOL)
+    log(f"[{tag}] fp32 twin ({FALCON_FP32_LAYERS} layers, full width): prefill "
+        f"{FALCON_DECODE[0]} + {FALCON_DECODE[1]} decode steps vs full forward: max "
+        f"|d logit| / max |logit| {worst:.4e} (tolerance {SERVE_LOGIT_TOL}), argmax "
+        f"agreement {agree:.4f}")
+    for k, n in counts.items():
+        kernels[k].launches = n
+    out["counts"] = counts
     return out
 
 
@@ -764,17 +1049,19 @@ def phase_serving(device) -> dict:
 # 6. kernel times
 # ---------------------------------------------------------------------------------
 
-def phase_times(img, device, errs: dict, launches: dict, decode_inputs) -> list:
+def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
+                griffin_decode_inputs) -> list:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention, flash_attention, page_gather
+    from repro_torch.kernels import (decode_attention, diag_recurrence, flash_attention,
+                                     page_gather)
     from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.diag_recurrence import diag_recurrence_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.page_gather import page_gather_plain
 
     rows = []
-    kernels = {"page_gather": page_gather, "flash_attention": flash_attention,
-               "decode_attention": decode_attention}
+    kernels = kernel_fns()
     saved = {name: k.launches for name, k in kernels.items()}
     # page_gather at the NO_PAGESERVER shape: every 4 MiB page of the qwen image
     store = img.store
@@ -828,37 +1115,85 @@ def phase_times(img, device, errs: dict, launches: dict, decode_inputs) -> list:
             "bound_ms": bound, "bound_by": by, "library_ms": t_l}
     rows.append(flash_rows[(16, 16, 2048)])          # qwen prefill at S=2048
 
-    # decode_attention at the qwen3-1.7b decode shape, on layer 0's cache and
-    # mask as the serving run left them; the bound counts the valid slots
-    kc, vc, valid = decode_inputs
-    B, Hkv, C, d = kc.shape
-    H = DECODE_MAIN[1]
-    q = torch.randn((B, H, d), generator=gen, device=device, dtype=kc.dtype)
-    t_k = cuda_ms(lambda: decode_attention(q, kc, vc, valid))
-    t_p = cuda_ms(lambda: decode_attention_plain(q, kc, vc, valid))
-    mask = valid[:, None, None, :]
+    # flash_attention at recurrentgemma-2b's local layer (fp32, as it serves)
+    B, H, Hkv, S, d, window = FLASH_GRIFFIN
+    q = torch.randn((B, H, S, d), generator=gen, device=device)
+    k = torch.randn((B, Hkv, S, d), generator=gen, device=device)
+    v = torch.randn((B, Hkv, S, d), generator=gen, device=device)
+    t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
+    t_p = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, window=window))
     t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
-    t_k2 = cuda_ms(lambda: decode_attention(q, kc, vc, valid))
-    n_valid = int(valid.sum())
-    esize = kc.element_size()
-    moved = 2 * n_valid * Hkv * d * esize + 2 * B * H * d * esize + valid.numel()
-    ops = 4 * n_valid * H * d
+        q, k, v, is_causal=True, enable_gqa=True))   # window 2048 = S: causal only
+    pairs = sum(min(i + 1, window) for i in range(S))
+    ops = 4 * B * H * d * pairs
+    moved = 4 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[str(kc.dtype).split(".")[1]] * 1e3
     bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
-    full = 2 * kc.numel() * esize / HBM_BYTES_PER_S * 1e3
-    log(f"[6] decode_attention {str(kc.dtype).split('.')[1]} B{B} H{H}/{Hkv} C{C} d{d}, "
-        f"{n_valid} of {B * C} slots valid: kernel {t_k:.4f} / {t_k2:.4f} ms "
-        f"({moved / (t_k * 1e-3) / 1e9:.1f} GB/s of needed bytes), plain {t_p:.4f} ms, "
-        f"sdpa {t_l:.4f} ms, bound {bound:.5f} ms ({by}); the whole cache would be "
-        f"{full:.5f} ms")
-    rows.append({"name": "decode_attention", "route": "cuda",
-                 "source": "src/repro_torch/csrc/decode_attention.cu",
-                 "replaces": "src/repro/kernels/decode_attention/kernel.py:72",
-                 "launches": launches["decode_attention"],
-                 "max_abs_err": errs["decode_attention"], "ms": t_k, "plain_ms": t_p,
-                 "bound_ms": bound, "bound_by": by, "library_ms": t_l})
+    log(f"[6] flash_attention fp32 B{B} H{H}/{Hkv} S{S} d{d} window {window}: kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms "
+        f"({by}, fp32 CUDA-core peak), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+
+    # decode_attention at the qwen3-1.7b decode shape (the row) and at
+    # recurrentgemma-2b's, on the first attention layer's cache and mask as each
+    # serving run left them; the bound counts the valid slots
+    def decode_times(inputs, H):
+        kc, vc, valid = inputs
+        B, Hkv, C, d = kc.shape
+        q = torch.randn((B, H, d), generator=gen, device=device, dtype=kc.dtype)
+        t_k = cuda_ms(lambda: decode_attention(q, kc, vc, valid))
+        t_p = cuda_ms(lambda: decode_attention_plain(q, kc, vc, valid))
+        mask = valid[:, None, None, :]
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
+        t_k2 = cuda_ms(lambda: decode_attention(q, kc, vc, valid))
+        n_valid = int(valid.sum())
+        esize = kc.element_size()
+        moved = 2 * n_valid * Hkv * d * esize + 2 * B * H * d * esize + valid.numel()
+        ops = 4 * n_valid * H * d
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS[str(kc.dtype).split(".")[1]] * 1e3
+        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        full = 2 * kc.numel() * esize / HBM_BYTES_PER_S * 1e3
+        log(f"[6] decode_attention {str(kc.dtype).split('.')[1]} B{B} H{H}/{Hkv} C{C} "
+            f"d{d}, {n_valid} of {B * C} slots valid: kernel {t_k:.4f} / {t_k2:.4f} ms "
+            f"({moved / (t_k * 1e-3) / 1e9:.1f} GB/s of needed bytes), plain {t_p:.4f} ms, "
+            f"sdpa {t_l:.4f} ms, bound {bound:.5f} ms ({by}); the whole cache would be "
+            f"{full:.5f} ms")
+        return {"name": "decode_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention/kernel.py:72",
+                "launches": launches["decode_attention"],
+                "max_abs_err": errs["decode_attention"], "ms": t_k, "plain_ms": t_p,
+                "bound_ms": bound, "bound_by": by, "library_ms": t_l}
+
+    rows.append(decode_times(decode_inputs, DECODE_MAIN[1]))
+    decode_times(griffin_decode_inputs, DECODE_GRIFFIN[1])
+
+    # diag_recurrence at the RG-LRU prefill shape and at one SSM chunk (the
+    # row: falcon-mamba launches it 512 times per 2048-token forward)
+    for (B, S, C) in RECURRENCE_MAIN:
+        a = torch.rand((B, S, C), generator=gen, device=device) * 0.5 + 0.5
+        b = torch.randn((B, S, C), generator=gen, device=device)
+        h0 = torch.randn((B, C), generator=gen, device=device)
+        t_k = cuda_ms(lambda: diag_recurrence(a, b, h0))
+        t_p = cuda_ms(lambda: diag_recurrence_plain(a, b, h0), iters=3, per=2, warmup=1)
+        t_k2 = cuda_ms(lambda: diag_recurrence(a, b, h0))
+        moved = 3 * B * S * C * 4 + 2 * B * C * 4      # a, b, h_all; h0, h_final
+        ops = 2 * B * S * C
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        log(f"[6] diag_recurrence fp32 B{B} S{S} C{C}: kernel {t_k:.4f} / {t_k2:.4f} ms "
+            f"({moved / (t_k * 1e-3) / 1e9:.1f} GB/s), plain {t_p:.4f} ms, bound "
+            f"{bound:.5f} ms ({by}); no single PyTorch call computes it")
+        row = {"name": "diag_recurrence", "route": "cuda",
+               "source": "src/repro_torch/csrc/diag_recurrence.cu",
+               "replaces": "src/repro/kernels/diag_recurrence/kernel.py:47",
+               "launches": launches["diag_recurrence"],
+               "max_abs_err": errs["diag_recurrence"], "ms": t_k, "plain_ms": t_p,
+               "bound_ms": bound, "bound_by": by, "library_ms": None}
+    rows.append(row)
     for name, n in saved.items():                     # timing launches do not count
         kernels[name].launches = n
     return rows
@@ -889,18 +1224,34 @@ def main() -> int:
     check_page_gather(qimg.store, device, errs)
     check_flash(device, errs)
     check_decode(device, errs)
+    check_diag_recurrence(device, errs)
+    peaks = [free_device("3")]
     with tempfile.TemporaryDirectory(prefix="repro-torch-smoke-") as tmp:
-        quick = phase_quickstart(device, tmp)
-        qwen = phase_qwen(cfg, qmanager, qimg, qparams, device)
+        counts = [phase_quickstart(device, tmp)]
+        counts.append(phase_qwen(cfg, qmanager, qimg, qparams, device))
         del qparams
-        serving = phase_serving(device)
-        launches = {k: quick.get(k, 0) + qwen.get(k, 0) + serving["counts"][k]
-                    for k in serving["counts"]}
-        rows = phase_times(qimg, device, errs, launches, serving.pop("decode_inputs"))
-        phase_qwen_coldstart(cfg, qmanager, device, tmp)
-    log(f"[7] serving summary: {json.dumps({k: v for k, v in serving.items() if k != 'counts'})}")
+        peaks.append(free_device("5"))
+        serving = phase_serving(device, "qwen3_1_7b", "7")
+        counts.append(serving.pop("counts"))
+        peaks.append(free_device("7"))
+        qwen_cold = phase_coldstart(cfg, qmanager, tmp, "6", "qwen", baseline_rounds=3)
+        peaks.append(free_device("6"))
+        falcon = phase_falcon(device, tmp)
+        counts.append(falcon.pop("counts"))
+        peaks.append(free_device("8"))
+        griffin = phase_serving(device, "recurrentgemma_2b", "9")
+        counts.append(griffin.pop("counts"))
+        peaks.append(free_device("9"))
+    launches = {k: sum(c.get(k, 0) for c in counts) for k in kernel_fns()}
+    log(f"[6] launches on the main paths: {launches}")
+    rows = phase_times(qimg, device, errs, launches, serving.pop("decode_inputs"),
+                       griffin.pop("decode_inputs"))
+    log(f"[6] qwen1.5-0.5b cold start, median of 3 (s): {json.dumps(qwen_cold)}")
+    log(f"[7] serving summary: {json.dumps(serving)}")
+    log(f"[8] falcon-mamba-7b summary: {json.dumps(falcon)}")
+    log(f"[9] serving summary: {json.dumps(griffin)}")
     log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"peak device memory {max(peaks) / 1e9:.2f} GB")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

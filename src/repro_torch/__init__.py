@@ -4,7 +4,7 @@ The package mirrors ``src/repro/`` module for module (``core/``, ``models/``,
 ``kernels/<name>/``, ``configs/``) so each module's counterpart is easy to find.
 The JAX package is the reference; this package never imports it.
 
-The TPU's Pallas kernels on the cold-start path are hand-written CUDA C++ here
+Each of the JAX package's four Pallas TPU kernels is hand-written CUDA C++ here
 (``csrc/``), built with ``nvcc`` for ``sm_90a`` at first use and bound with
 ``ctypes``. Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU each kernel wrapper runs its plain PyTorch version.

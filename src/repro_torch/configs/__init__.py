@@ -5,7 +5,8 @@ the JAX package so the port never imports it. ``get_config(name)`` and
 ``list_archs()`` are the programmatic API; ``get_reduced(name)`` returns the
 CPU smoke-test variant. Every id resolves here; the port's model runs the
 dense ones (gemma2_27b, qwen3_1_7b, h2o_danube3_4b, qwen1_5_0_5b,
-fnbench_tiny) and raises ``NotImplementedError`` for the other families
+fnbench_tiny), falcon_mamba_7b (SSM) and recurrentgemma_2b (RG-LRU hybrid),
+and raises ``NotImplementedError`` for the MoE, encoder-decoder and VLM ones
 (``models.transformer.check_supported``).
 """
 from __future__ import annotations

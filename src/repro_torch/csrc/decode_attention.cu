@@ -19,9 +19,15 @@
 //   in registers: the only reuse decode has (the TPU kernel's reason for its
 //   (1, 1, g, d) q block).
 // - Loads are 16 bytes a lane, neighbouring lanes on neighbouring addresses: a
-//   row of d elements is read by LPR = d*sizeof(T)/16 lanes, and a warp reads
+//   row of d elements is read by LPR = min(32, d*sizeof(T)/16) lanes, each
+//   taking VPL 16-byte vectors of it (2 for fp32 at d=256), and a warp reads
 //   RPW = 32/LPR consecutive rows per load. Each lane keeps NJ rows of K and V
 //   in flight per step.
+// - g is a loop bound, not a lane count, so any g works; the dispatch builds
+//   g = 1, 2, 4, 8 and 10 (recurrentgemma's 10 query heads over one kv head).
+//   Where q's share of registers would crowd out the g accumulators (d=256,
+//   g=10) q is staged in shared memory, in the space the warps' final merge
+//   uses after the loop.
 // - The TPU's sequential kv grid axis and VMEM scratch become, per lane group,
 //   a loop over the cache with the online-softmax state in registers; the lane
 //   groups of a warp and the warps of a block merge their states at the end
@@ -65,6 +71,9 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
@@ -89,15 +98,22 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int valid_stride, float scale, int has_softcap, float softcap,
                     int split_len, int n_splits) {
   constexpr int EPL = 16 / sizeof(T);          // elements per 16-byte load
-  constexpr int LPR = D / EPL;                 // lanes reading one row
+  constexpr int VPR = D / EPL;                 // 16-byte vectors in a row
+  constexpr int LPR = VPR < 32 ? VPR : 32;     // lanes reading one row
+  constexpr int VPL = VPR / LPR;               // vectors a lane reads per row
+  constexpr int CPL = VPL * EPL;               // columns a lane holds
   constexpr int RPW = 32 / LPR;                // rows a warp reads per load
-  constexpr int NJ = (G * EPL >= 32) ? 2 : 4;  // rows per lane group per step
+  constexpr int NJ = (G * CPL >= 32) ? 2 : 4;  // rows per lane group per step
   constexpr int STEP = RPW * NJ;               // rows per warp per step
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "unsupported head dim");
+  // q lives in registers unless its G*CPL values would crowd out the
+  // accumulators (d=256 with g=10: 80 each); then it is read from shared memory
+  constexpr bool kQShared = G * CPL > 64;
+  static_assert(LPR >= 1 && 32 % LPR == 0 && VPR % LPR == 0, "unsupported head dim");
 
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
+  __shared__ float sm_acc[kWarps][G][D];       // also holds q (G x D) during the loop
+  float* sm_q = &sm_acc[0][0][0];
 
   const int sp = blockIdx.x;
   const int bh = blockIdx.y;                   // b * Hkv + kv head
@@ -106,24 +122,31 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sub = lane / LPR;                  // which row of a load
   const int col0 = (lane % LPR) * EPL;         // first column this lane holds
   const uint8_t* vrow = valid + static_cast<size_t>(b) * valid_stride;
+  // q rows of the g heads that share this kv head: (b, hk*G + gi) = bh*G + gi
+  const T* qbase = q + static_cast<size_t>(bh) * G * D;
+
+  float qr[kQShared ? 1 : G][CPL];
+  if constexpr (kQShared) {
+    for (int t = threadIdx.x; t < G * D; t += kThreads) sm_q[t] = to_float(qbase[t]);
+  } else {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int vv = 0; vv < VPL; ++vv)
+        load16(qbase + gi * D + col0 + vv * LPR * EPL, qr[gi] + vv * EPL);
+  }
 
   int any = 0;
   for (int j = threadIdx.x; j < S; j += kThreads) any |= vrow[j];
-  const int row_any = __syncthreads_or(any);
+  const int row_any = __syncthreads_or(any);   // also publishes sm_q
 
-  // q rows of the g heads that share this kv head: (b, hk*G + gi) = bh*G + gi
-  float qr[G][EPL];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-    load16(q + (static_cast<size_t>(bh) * G + gi) * D + col0, qr[gi]);
-
-  float m[G], l[G], acc[G][EPL];
+  float m[G], l[G], acc[G][CPL];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     m[gi] = kNegInf;
     l[gi] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[gi][e] = 0.f;
+    for (int e = 0; e < CPL; ++e) acc[gi][e] = 0.f;
   }
 
   const size_t kv_base = static_cast<size_t>(bh) * S * D;
@@ -141,28 +164,38 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (row_any && !__any_sync(kFull, mine)) continue;   // uniform across the warp
 
-    float kf[NJ][EPL], vf[NJ][EPL];
+    float kf[NJ][CPL], vf[NJ][CPL];
 #pragma unroll
     for (int i = 0; i < NJ; ++i) {
       const size_t off = kv_base + static_cast<size_t>(c0 + i * RPW + sub) * D + col0;
-      if (in[i]) {
-        load16(k + off, kf[i]);
-        load16(v + off, vf[i]);
-      } else {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) kf[i][e] = vf[i][e] = 0.f;
+      for (int vv = 0; vv < VPL; ++vv) {
+        if (in[i]) {
+          load16(k + off + vv * LPR * EPL, kf[i] + vv * EPL);
+          load16(v + off + vv * LPR * EPL, vf[i] + vv * EPL);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) kf[i][vv * EPL + e] = vf[i][vv * EPL + e] = 0.f;
+        }
       }
     }
 
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
+      float qg[CPL];
+#pragma unroll
+      for (int vv = 0; vv < VPL; ++vv)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          qg[vv * EPL + e] = kQShared ? sm_q[gi * D + col0 + vv * LPR * EPL + e]
+                                      : qr[kQShared ? 0 : gi][vv * EPL + e];
       float s[NJ];
       float mt = -INFINITY;
 #pragma unroll
       for (int i = 0; i < NJ; ++i) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) dot = fmaf(qr[gi][e], kf[i][e], dot);
+        for (int e = 0; e < CPL; ++e) dot = fmaf(qg[e], kf[i][e], dot);
 #pragma unroll
         for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
         float x = dot * scale;
@@ -183,7 +216,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[gi] = l[gi] * alpha + ps;
       m[gi] = m_new;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
+      for (int e = 0; e < CPL; ++e) {
         float a = acc[gi][e] * alpha;
 #pragma unroll
         for (int i = 0; i < NJ; ++i) a = fmaf(s[i], vf[i][e], a);
@@ -202,17 +235,21 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float a, c;
       merge_state(m[gi], l[gi], mo, lo, a, c);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
+      for (int e = 0; e < CPL; ++e) {
         const float ao = __shfl_xor_sync(kFull, acc[gi][e], off);
         acc[gi][e] = acc[gi][e] * a + ao * c;
       }
     }
   }
+  if constexpr (kQShared) __syncthreads();     // every warp is done reading sm_q
   if (lane < LPR) {
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][gi][col0 + e] = acc[gi][e];
+      for (int vv = 0; vv < VPL; ++vv)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          sm_acc[warp][gi][col0 + vv * LPR * EPL + e] = acc[gi][vv * EPL + e];
       if (lane == 0) {
         sm_m[warp][gi] = m[gi];
         sm_l[warp][gi] = l[gi];
@@ -294,6 +331,7 @@ int dispatch_g(int G, const void* q, const void* k, const void* v, const uint8_t
     DECODE_CASE(2)
     DECODE_CASE(4)
     DECODE_CASE(8)
+    DECODE_CASE(10)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef DECODE_CASE
@@ -312,6 +350,9 @@ int dispatch_d(int D, int G, const void* q, const void* k, const void* v,
                                       valid_stride, scale, has_softcap, softcap,
                                       n_splits, split_len, s);
     case 128: return dispatch_g<T, 128>(G, q, k, v, valid, out, part, B, H, Hkv, S,
+                                        valid_stride, scale, has_softcap, softcap,
+                                        n_splits, split_len, s);
+    case 256: return dispatch_g<T, 256>(G, q, k, v, valid, out, part, B, H, Hkv, S,
                                         valid_stride, scale, has_softcap, softcap,
                                         n_splits, split_len, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -20,7 +20,10 @@
 // q, k, v tiles are staged in shared memory as fp32 (rows padded by one word so
 // the 16 threads of a row group hit distinct banks). Thread (ty, tx) owns rows
 // 4*ty..4*ty+3, score columns tx+16j and output columns tx+16c; row maxima and
-// sums reduce across the 16 lanes of a row group with warp shuffles.
+// sums reduce across the 16 lanes of a row group with warp shuffles. At d=256
+// (recurrentgemma's local layers) the tiles take 213,760 bytes of shared
+// memory, under the 232,448 a block may opt into, so one block runs per SM,
+// and each thread keeps acc[4][16] in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -222,6 +225,8 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int 
     case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal,
                                   has_window, window, has_softcap, softcap, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal,
+                                    has_window, window, has_softcap, softcap, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal,
                                     has_window, window, has_softcap, softcap, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

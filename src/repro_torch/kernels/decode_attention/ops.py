@@ -27,8 +27,8 @@ import torch
 from repro_torch.kernels.build import check, library
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (32, 64, 128, 256)
+GROUPS = (1, 2, 4, 8, 10)
 SPLIT_ALIGN = 64                 # split lengths are multiples of this many slots
 BLOCKS_PER_SM = 2                # the split count aims at this many blocks per SM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,8 +82,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     ``valid`` (``(S,)`` or ``(B, S)``, bool or integer) marks the live slots.
 
     CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch the
-    kernel (contiguous, 16-byte aligned fp32 or bf16, d in 32/64/128, g in
-    1/2/4/8), counted in ``decode_attention.launches``.
+    kernel (contiguous, 16-byte aligned fp32 or bf16, d in 32/64/128/256, g
+    in 1/2/4/8/10), counted in ``decode_attention.launches``.
     """
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"want q (B,H,d) and k/v (B,Hkv,S,d), got {tuple(q.shape)}, "

@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels.build import check, library
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -69,7 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over q ``(B, H, Sq, d)`` and k/v ``(B, Hkv, Sk, d)``.
 
     CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (contiguous fp32 or bf16, d in 32/64/128), counted in
+    kernel (contiguous fp32 or bf16, d in 32/64/128/256), counted in
     ``flash_attention.launches``.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:

@@ -8,10 +8,14 @@ from the pool and then serves continuous-batched decode traffic. It runs on
   python -m repro_torch.launch.serve --image model-tiny --requests 16 --slots 4
   python -m repro_torch.launch.serve --arch qwen3_1_7b --reduced --requests 8 --device cpu
   python -m repro_torch.launch.serve --arch qwen3_1_7b
+  python -m repro_torch.launch.serve --arch recurrentgemma_2b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch recurrentgemma_2b
 
-``--arch`` images hold fp32 parameters, as the reference builds them; the
-``--image`` ones are the workload suite's bf16 images, which the port serves
-with a bf16 decode state.
+``--arch`` takes the dense ids, falcon_mamba_7b and recurrentgemma_2b; its
+images hold fp32 parameters, as the reference builds them, and run with TF32
+off (fp32 products and convolutions in full fp32). The ``--image`` ones are
+the workload suite's bf16 images, which the port serves with a bf16 decode
+state.
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ def main() -> None:
     from repro_torch.serving import ServeConfig, ServingEngine
 
     device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     policy = RestorePolicy(args.policy)
     mgr = DependencyManager(device=device)
 

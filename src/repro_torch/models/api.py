@@ -1,4 +1,4 @@
-"""Serving steps over the dense model (port of ``repro.models.api``, serving half).
+"""Serving steps over the decoder-only model (port of ``repro.models.api``, serving half).
 
 Each ``make_*`` returns a plain callable; PyTorch runs eagerly, so there is no
 jit around it. The loss and the train step come with the training slice.

@@ -37,7 +37,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _he(gen: torch.Generator, shape, scale_dim: int, dtype) -> torch.Tensor:
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x / math.sqrt(scale_dim)).to(dtype)
+    return x.div_(math.sqrt(scale_dim)).to(dtype)     # in place: one fp32 copy at a time
 
 
 def _zeros(gen: torch.Generator, shape, dtype) -> torch.Tensor:

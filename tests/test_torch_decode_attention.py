@@ -22,6 +22,8 @@ ROWS = [  # (B, H, Hkv, S, d, softcap) as tests/test_kernels.py:50-54
     (2, 4, 2, 300, 64, None),
     (1, 8, 1, 512, 128, 50.0),
     (4, 2, 2, 64, 32, None),
+    (2, 10, 1, 300, 256, None),                  # recurrentgemma-2b: d=256, g=10
+    (1, 20, 2, 128, 256, 50.0),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -17,6 +17,7 @@ ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap) as tests/test_kernels.py:
     (2, 2, 1, 200, 32, True, None, 50.0),
     (1, 2, 2, 96, 128, False, None, None),
     (1, 8, 2, 320, 64, True, 100, 30.0),
+    (1, 10, 1, 192, 256, True, 128, None),       # recurrentgemma-2b: d=256, g=10
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's bars (test_kernels.py:22-23)
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

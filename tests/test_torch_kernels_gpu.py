@@ -13,6 +13,8 @@ import torch
 from repro_torch.kernels import (
     decode_attention,
     decode_attention_plain,
+    diag_recurrence,
+    diag_recurrence_plain,
     flash_attention,
     flash_attention_plain,
     page_gather,
@@ -27,12 +29,21 @@ FLASH_ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap): tests/test_kernels
     (1, 8, 2, 320, 64, True, 100, 30.0),
     (1, 16, 16, 2048, 64, True, None, None),      # qwen1.5-0.5b prefill
     (1, 2, 2, 70, 64, True, 0, None),             # every key masked
+    (1, 10, 1, 2048, 256, True, 2048, None),      # recurrentgemma-2b local layer
+    (2, 10, 1, 300, 256, True, 100, 30.0),
 ]
 DECODE_ROWS = [  # (B, H, Hkv, S, d, softcap): tests/test_kernels.py:50-54
     (2, 4, 2, 300, 64, None),
     (1, 8, 1, 512, 128, 50.0),
     (4, 2, 2, 64, 32, None),
     (4, 16, 8, 4096, 128, None),                  # qwen3-1.7b decode, 4 slots
+    (4, 10, 1, 2048, 256, None),                  # recurrentgemma-2b decode, 4 slots
+    (2, 20, 2, 300, 256, 50.0),
+]
+RECURRENCE_ROWS = [  # (B, S, C): tests/test_kernels.py:68-70, then the model shapes
+    (2, 100, 64), (1, 256, 32), (3, 17, 130), (1, 64, 2048),
+    (1, 2048, 2560),                              # recurrentgemma-2b RG-LRU prefill
+    (1, 256, 131072),                             # falcon-mamba-7b, one SSM chunk
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -120,3 +131,26 @@ def test_decode_attention_kernel_matches_plain(dtype):
             assert out.dtype == dtype and torch.isfinite(out.float()).all()
             np.testing.assert_allclose(out.float().cpu().numpy(),
                                        ref.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_diag_recurrence_kernel_matches_plain():
+    """The kernel rounds as the plain version's ``a * h + b`` does: the two
+    agree within the recurrence's 1e-4 (bit for bit by design)."""
+    dev = _card()
+    rng = np.random.default_rng(13)
+    for (B, S, C) in RECURRENCE_ROWS:
+        a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, C)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.standard_normal((B, S, C)).astype(np.float32)).to(dev)
+        h0 = torch.from_numpy(rng.standard_normal((B, C)).astype(np.float32)).to(dev)
+        before = diag_recurrence.launches
+        h_all, h_final = diag_recurrence(a, b, h0)
+        torch.cuda.synchronize()
+        assert diag_recurrence.launches == before + 1
+        ref_all, ref_final = diag_recurrence_plain(a, b, h0)
+        assert h_all.shape == (B, S, C) and h_final.shape == (B, C)
+        np.testing.assert_allclose(h_all.cpu().numpy(), ref_all.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        assert torch.equal(h_final, h_all[:, -1])
+        np.testing.assert_allclose(h_final.cpu().numpy(), ref_final.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)

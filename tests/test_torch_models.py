@@ -12,7 +12,7 @@ from repro.core import workloads as jwl
 from repro.core.pages import paginate as jax_paginate
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
-from repro.models.config import LOCAL_ATTN, SSM
+from repro.models.config import LOCAL_ATTN
 from repro.models.transformer import forward as jax_forward, init_params as jax_init
 from repro_torch.core import workloads as twl
 from repro_torch.core.pages import PageTable, materialize
@@ -232,9 +232,10 @@ def test_port_init_has_the_reference_layout():
 
 
 def test_unported_families_raise():
-    cfg = TorchArchConfig(name="ssm", family="ssm", n_layers=2, d_model=64, n_heads=4,
-                          n_kv_heads=4, d_ff=128, vocab_size=256, attn_pattern=(SSM,),
-                          ssm_state=4)
+    cfg = TorchArchConfig(name="whisper", family="audio", n_layers=2, d_model=64,
+                          n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=256,
+                          is_encoder_decoder=True, n_enc_layers=2,
+                          frontend="audio_frames")
     with pytest.raises(NotImplementedError, match="Other architectures"):
         init_params(torch.Generator().manual_seed(0), cfg)
     moe = dataclasses.replace(_torch_cfg(QKV_BIAS_CFG), n_experts=4, top_k=2)
