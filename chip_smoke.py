@@ -8,22 +8,28 @@ dense and the recurrent families, and checks them:
 
 1. environment: card name and power limit, torch and CUDA versions;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a),
-   one nvcc per source, all started together;
+   one nvcc per source, all started together, and the count of tensor-core
+   instructions (HMMA / HGMMA) in flash_attention's SASS where cuobjdump is
+   present;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the paths give it (page_gather bitwise; flash_attention and
-   decode_attention within 2e-2 for bf16 and 2e-5 for fp32, including
-   recurrentgemma's d=256, g=10 layers; diag_recurrence within 1e-4 at the
+   the paths give it (page_gather bitwise, including rows with a byte tail,
+   rows shorter than one bulk item, 4 MiB + 16 B rows and an unaligned view
+   of a pool; flash_attention and decode_attention within 2e-2 for bf16 and
+   2e-5 for fp32, including all-masked rows, Sq != Sk, qwen3's d=128 prefill
+   and recurrentgemma's d=256, g=10 layers; diag_recurrence within 1e-4 at the
    reference's sweep and at the RG-LRU and SSM-chunk shapes, h0 != 0);
 4. the quickstart loop: three model images in one pool, two tenants per
    serving workload, baseline / warmswap under all four restore policies /
-   prebaked, all giving equal classes;
+   prebaked, all giving equal classes; every flash_attention launch on the
+   tensor-core route;
 5. qwen1.5-0.5b at full width: a 0.93 GB image migrated under BULK and
    NO_PAGESERVER, restored leaves bitwise equal to the originals, prefill at
-   S=64 and S=2048 with equal logits, and the kernel path against the plain
-   path;
+   S=64 and S=2048 with equal logits (flash_attention on the tensor-core
+   route), and the kernel path against the plain path;
 6. kernel times (CUDA events around back-to-back calls, median of the runs
    after warm-up) beside their bound, their plain version and one library
-   call, and the qwen1.5 cold-start totals;
+   call (flash_attention also at S=64 and at qwen3's fp32 d=128 prefill),
+   page_gather's host time per call, and the qwen1.5 cold-start totals;
 7. serving on qwen3-1.7b at full width (28 layers, fp32, 6.9 GB image): a
    ReplicaSet of two replicas brought up from the pool (BULK), each with 4
    slots of 4096 positions, serves 8 requests (prompts of 512-2048 tokens, 64
@@ -85,6 +91,7 @@ SERVE_PROMPTS = (512, 2048)          # prompt lengths, drawn uniformly (numpy se
 DECODE_MAIN = (SERVE_SLOTS, 16, 8, SERVE_SEQ, 128)      # qwen3-1.7b decode: B, H, Hkv, C, d
 SERVE_LOGIT_TOL = 1e-3     # of max |logit|: fp32, products in another order
 FLASH_GRIFFIN = (1, 10, 1, 2048, 256, 2048)   # recurrentgemma local layer: B, H, Hkv, S, d, window
+FLASH_QWEN3 = (1, 16, 8, 2048, 128)           # qwen3-1.7b serving prefill (fp32): B, H, Hkv, S, d
 DECODE_GRIFFIN = (SERVE_SLOTS, 10, 1, 2048, 256)  # its decode: B, H, Hkv, C = window, d
 RECURRENCE_SWEEP = [(2, 100, 64), (1, 256, 32), (3, 17, 130), (1, 64, 2048)]  # test_kernels.py:68-70
 RECURRENCE_MAIN = [(1, 2048, 2560),      # recurrentgemma-2b RG-LRU prefill at S=2048
@@ -131,6 +138,26 @@ def kernel_fns() -> dict:
             "decode_attention": decode_attention, "diag_recurrence": diag_recurrence}
 
 
+def reset_counts(kernels) -> None:
+    """Set the launch counters of ``kernels`` to 0 (flash_attention's count per
+    route too)."""
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "launches_by_route"):
+            k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
+
+
+def expect_route(tag: str, path: str, route: str) -> dict:
+    """Every flash_attention launch since the last reset went through ``route``
+    (``tc_bf16`` for bf16 images, ``cuda_core`` for fp32 ones)."""
+    from repro_torch.kernels import flash_attention
+    by_route = dict(flash_attention.launches_by_route)
+    log(f"[{tag}] flash_attention launches by route during the {path}: {by_route}")
+    expect(by_route[route] == flash_attention.launches > 0,
+           f"the {path} did not run flash_attention on the {route} route: {by_route}")
+    return by_route
+
+
 def free_device(tag: str) -> int:
     """Drop what the phase left, print its peak device memory and return it."""
     import torch
@@ -164,6 +191,20 @@ def cuda_ms(fn, iters: int = 20, per: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, n: int = 200) -> float:
+    """Median host time of one call of ``fn`` in us, the device idle before
+    each call (a synchronize outside the timed part)."""
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
 # ---------------------------------------------------------------------------------
 # 1-2. environment and build
 # ---------------------------------------------------------------------------------
@@ -182,15 +223,41 @@ def phase_environment() -> str:
     return card
 
 
+def _disassembler():
+    """cuobjdump from the CUDA toolkit, or the copy Triton ships; None if
+    neither is present."""
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(found):
+        return found
+    try:
+        import triton
+    except ImportError:
+        return None
+    found = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                         "cuobjdump")
+    return found if os.path.exists(found) else None
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all(list(kernel_fns()))
+    libs = build.build_all(list(kernel_fns()))
     log(f"[2] built {' + '.join(kernel_fns())} in {time.perf_counter() - t0:.2f} s")
     for name, text in sorted(build.BUILD_LOG.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[2] {name}: {line.strip()}")
+    tool = _disassembler()
+    if tool is None:
+        log("[2] flash_attention SASS: no disassembler (cuobjdump) is present; "
+            "tensor-core instructions not counted")
+        return
+    sass = subprocess.run([tool, "-sass", libs["flash_attention"]._name],
+                          capture_output=True, text=True, timeout=300).stdout
+    hmma = sum(1 for line in sass.splitlines() if "HMMA" in line)
+    hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+    log(f"[2] flash_attention SASS ({tool}): {hmma} HMMA and {hgmma} HGMMA instructions")
+    expect(hmma + hgmma > 0, "the flash_attention library has no tensor-core instruction")
 
 
 # ---------------------------------------------------------------------------------
@@ -213,6 +280,14 @@ def check_page_gather(store, device, errs: dict) -> None:
     odd = torch.randint(0, 256, (9, 1000 * 4 + 3), dtype=torch.uint8,
                         generator=gen).to(device)           # byte tail, unaligned rows
     cases.append(("uint8/odd-row", odd, torch.tensor([8, 0, 3, 3, 7])))
+    big = torch.randint(0, 256, (5, 4 * 2**20 + 16), dtype=torch.uint8,
+                        generator=gen).to(device)           # a last bulk item of 16 B
+    cases.append(("uint8/4MiB+16", big, torch.tensor([4, 1, 1, 0, 3, 2])))
+    small = torch.randint(0, 256, (40, 48), dtype=torch.uint8, generator=gen).to(device)
+    cases.append(("uint8/48B-rows", small, torch.randint(0, 40, (64,), generator=gen)))
+    flat = torch.randint(0, 256, (1 + 12 * 4096,), dtype=torch.uint8, generator=gen)
+    cases.append(("uint8/unaligned-view", flat.to(device)[1:].view(12, 4096),
+                  torch.tensor([3, 3, 0, 11, 5, 3])))
     for name, pool, ids in cases:
         for where in ("host ids", "device ids"):
             ids_in = ids.to(torch.int32)
@@ -240,9 +315,15 @@ def check_flash(device, errs: dict) -> None:
         for (B, H, Hkv, S, d) in FLASH_MAIN:
             cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
         cases.append((dtype, 1, 4, 2, 100, 150, 64, True, None, None))   # Sq != Sk
+        cases.append((dtype, 1, 4, 2, 150, 100, 64, True, None, None))
         cases.append((dtype, 1, 2, 2, 70, 70, 64, True, 0, None))        # all masked
+        cases.append((dtype, 1, 2, 1, 90, 130, 256, True, 0, None))
         B, H, Hkv, S, d, window = FLASH_GRIFFIN
         cases.append((dtype, B, H, Hkv, S, S, d, True, window, None))
+        B, H, Hkv, S, d = FLASH_QWEN3
+        cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
+        cases.append((dtype, 2, 8, 2, 333, 333, 128, True, None, 50.0))
+        cases.append((dtype, 1, 4, 2, 517, 517, 256, True, 200, None))
     worst = 0.0
     for (dtype, B, H, Hkv, Sq, Sk, d, causal, window, cap) in cases:
         q = torch.randn((B, H, Sq, d), generator=gen, device=device).to(dtype)
@@ -385,8 +466,7 @@ def phase_quickstart(device, tmp: str) -> dict:
     log(f"[4] pool: {manager.summary()['live_images']} "
         f"({manager.pool_bytes() / 1e6:.1f} MB live on {device})")
 
-    page_gather.launches = 0
-    flash_attention.launches = 0
+    reset_counts([page_gather, flash_attention])
     for fn_id in registry.list():
         req = wl.default_request()
         classes = {}
@@ -418,6 +498,7 @@ def phase_quickstart(device, tmp: str) -> dict:
     log(f"[4] launches during the quickstart loop: {counts}")
     for name, n in counts.items():
         expect(n > 0, f"{name} was not launched by the quickstart loop")
+    expect_route("4", "quickstart loop", "tc_bf16")
     return counts
 
 
@@ -483,8 +564,7 @@ def phase_qwen(cfg, manager, img, original, device) -> dict:
     tokens = {s: torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=device)
               for s in QWEN_SEQS}
     ref_leaves = dict(flatten_with_keys(original))
-    page_gather.launches = 0
-    flash_attention.launches = 0
+    reset_counts([page_gather, flash_attention])
     restored = {}
     for policy in (RestorePolicy.BULK, RestorePolicy.NO_PAGESERVER):
         t0 = time.perf_counter()
@@ -522,6 +602,7 @@ def phase_qwen(cfg, manager, img, original, device) -> dict:
     log(f"[5] launches during the qwen path: {counts}")
     for name, n in counts.items():
         expect(n > 0, f"{name} was not launched by the qwen path")
+    expect_route("5", "qwen path", "tc_bf16")
 
     # kernel path vs plain path on the card (not counted: checks only)
     for s in QWEN_SEQS:
@@ -750,8 +831,7 @@ def phase_serving(device, arch: str, tag: str) -> dict:
                                      SERVE_REQUESTS)]
 
     # ---- the main path, counted
-    for k in kernels.values():
-        k.launches = 0
+    reset_counts(kernels.values())
     rs = ReplicaSet(manager, cfg.name, cfg, make_engine, n_replicas=2)
     names = sorted(rs.replicas)
     for e in rs.events:
@@ -801,6 +881,7 @@ def phase_serving(device, arch: str, tag: str) -> dict:
     log(f"[{tag}] launches during the serving path: {counts}")
     for name, n in counts.items():
         expect(n > 0, f"{name} was not launched by the serving path")
+    expect_route(tag, "serving path (fp32)", "cuda_core")
     out = {"counts": counts, "ttft_ms": statistics.mean(ttft) * 1e3,
            "decode_step_ms": statistics.median(decode_s) * 1e3,
            "tokens_per_s": total_tokens / serve_s, "recover_warmswap_s": warm_s,
@@ -963,8 +1044,7 @@ def phase_falcon(device, tmp: str) -> dict:
         f"pages ({img.image_bytes} B on the card), built in {time.perf_counter() - t0:.2f} s")
 
     # ---- the main path, counted: restores, cold starts, prefill, decode
-    for k in kernels.values():
-        k.launches = 0
+    reset_counts(kernels.values())
     ref_leaves = dict(flatten_with_keys(keep.pop("params")))
     for policy in (RestorePolicy.BULK, RestorePolicy.NO_PAGESERVER):
         t0 = time.perf_counter()
@@ -1077,9 +1157,19 @@ def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
     t_k2 = cuda_ms(lambda: page_gather(store, ids_host))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"[6] page_gather K={K} rows of {store.shape[1]} B: kernel {t_k:.4f} / "
-        f"{t_k2:.4f} ms with host ids ({nbytes / (t_k * 1e-3) / 1e9:.1f} GB/s), "
-        f"{t_d:.4f} ms with device ids (range check syncs), plain {t_p:.4f} ms, "
-        f"index_select {t_l:.4f} ms, bound {bound:.4f} ms (bytes)")
+        f"{t_k2:.4f} ms with host ids ({nbytes / (t_k * 1e-3) / 1e9:.1f} GB/s, "
+        f"{bound / t_k:.4f} of the bound), {t_d:.4f} ms with device ids (range check "
+        f"syncs), plain {t_p:.4f} ms, index_select {t_l:.4f} ms, bound {bound:.4f} ms "
+        f"(bytes)")
+    # the wrapper's host time per call with host ids, as the page server calls it
+    # (device idle before each call; the call itself is not synchronized)
+    span = torch.arange(5, 25, dtype=torch.int32)
+    for label, ids in (("all pages", ids_host), ("a 20-page span", span)):
+        log(f"[6] page_gather wrapper host time per call, {label}, host ids: "
+            f"{host_us(lambda: page_gather(store, ids)):.2f} us (of it: id range check "
+            f"{host_us(lambda: torch.aminmax(ids)):.2f} us; a pin_memory() copy per call, "
+            f"as the earlier wrapper made, would cost "
+            f"{host_us(lambda: ids.pin_memory().to(device, non_blocking=True)):.2f} us)")
     rows.append({"name": "page_gather", "route": "cuda",
                  "source": "src/repro_torch/csrc/page_gather.cu",
                  "replaces": "src/repro/kernels/page_gather/kernel.py:27",
@@ -1133,6 +1223,23 @@ def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
     log(f"[6] flash_attention fp32 B{B} H{H}/{Hkv} S{S} d{d} window {window}: kernel "
         f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms "
         f"({by}, fp32 CUDA-core peak), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+
+    # flash_attention at qwen3-1.7b's serving prefill (fp32, the CUDA-core route)
+    B, H, Hkv, S, d = FLASH_QWEN3
+    q = torch.randn((B, H, S, d), generator=gen, device=device)
+    k = torch.randn((B, Hkv, S, d), generator=gen, device=device)
+    v = torch.randn((B, Hkv, S, d), generator=gen, device=device)
+    t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+    t_p = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                         enable_gqa=True))
+    ops = 4 * B * H * d * (S * (S + 1) // 2)
+    moved = 4 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+    bound, by = max((ops / PEAK_FLOPS["float32"] * 1e3, "operations"),
+                    (moved / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"[6] flash_attention fp32 B{B} H{H}/{Hkv} S{S} d{d} causal: kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms ({by}, fp32 "
+        f"CUDA-core peak), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
 
     # decode_attention at the qwen3-1.7b decode shape (the row) and at
     # recurrentgemma-2b's, on the first attention layer's cache and mask as each

@@ -9,6 +9,7 @@ stale library is never loaded.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -84,3 +85,12 @@ def check(status: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def on_device(device):
+    """A context that makes ``device`` current for a launch: a no-op when it
+    already is (the common case, which skips a device switch per call)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

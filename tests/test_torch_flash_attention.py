@@ -1,6 +1,7 @@
 """The port's flash_attention against the JAX kernel (interpret mode), its
-jnp oracle and the model's blockwise path; the CUDA kernel itself is checked
-in tests/test_torch_kernels_gpu.py."""
+jnp oracle and the model's blockwise path; the launch planner; and an
+emulation of the tensor-core route's rounding points against both. The CUDA
+kernel itself is checked in tests/test_torch_kernels_gpu.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,6 +10,15 @@ import torch
 from repro.kernels import attention_ref, flash_attention as jax_flash
 from repro.models.attention import blockwise_attention
 from repro_torch.kernels import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention.ops import (
+    CORE_TILES,
+    HEAD_DIMS,
+    NEG_INF,
+    ROUTES,
+    TC_TILES,
+    plan,
+    q_tile_order,
+)
 from tests._torch_parity import to_f32, to_torch
 
 ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap) as tests/test_kernels.py:29-35
@@ -96,3 +106,147 @@ def test_reference_kernel_counts_padded_keys_in_all_masked_rows():
                                 causal=True, window=0)
     np.testing.assert_allclose(to_f32(out), np.asarray(v).mean(2, keepdims=True)
                                * np.ones_like(kern), atol=1e-5)
+
+
+# ---- the tensor-core route's numerics, emulated on the CPU -----------------------
+
+def _kv_tile_range(p, q0, Sq, Sk, causal, window):
+    """The kv tiles a q tile visits, with the kernel's skip rule."""
+    skip = not (window is not None and (window < 1 or Sq > Sk))
+    k_lo, k_hi = 0, Sk
+    if skip:
+        if causal:
+            k_hi = min(Sk, q0 + p.block_q)
+        if window is not None:
+            k_lo = max(0, q0 - window + 1)
+    return range((k_lo // p.block_k) * p.block_k, k_hi, p.block_k)
+
+
+def tc_bf16_emulation(q, k, v, *, causal, window, softcap, scale=None):
+    """The rounding points of the bf16 tensor-core kernel, in fp32 arithmetic:
+    tiles of block_q x block_k from :func:`plan`, scores in fp32 from the bf16
+    inputs, an online softmax (running max, fp32 denominator of the unrounded
+    p), P rounded to bf16 before P.V, fp32 accumulation, the finite NEG_INF
+    for masked keys, l clamped to 1e-30, one rounding of the output to bf16."""
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    p = plan(torch.bfloat16, d, Sq, causal)
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    out = torch.empty((B, H, Sq, d))
+    for qt in q_tile_order(p):
+        q0 = qt * p.block_q
+        qi = torch.arange(q0, min(Sq, q0 + p.block_q))[:, None]
+        qf = q[:, :, q0: q0 + p.block_q].float()
+        m = torch.full((B, H, qi.shape[0], 1), NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, H, qi.shape[0], d))
+        for kt in _kv_tile_range(p, q0, Sq, Sk, causal, window):
+            kj = torch.arange(kt, min(Sk, kt + p.block_k))[None, :]
+            s = (qf @ kf[:, :, kt: kt + p.block_k].transpose(-1, -2)) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            ok = torch.ones_like(kj <= qi)
+            if causal:
+                ok &= kj <= qi
+            if window is not None:
+                ok &= (qi - kj) < window
+            s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            pr = torch.exp(s - m_new)
+            l = alpha * l + pr.sum(-1, keepdim=True)
+            acc = alpha * acc + pr.bfloat16().float() @ vf[:, :, kt: kt + p.block_k]
+            m = m_new
+        out[:, :, q0: q0 + p.block_q] = acc / l.clamp_min(1e-30)
+    return out.bfloat16()
+
+
+def _bf16_case(B, H, Hkv, Sq, Sk, d, seed):
+    rng = np.random.default_rng(seed)
+    return [jnp.asarray(rng.standard_normal(shape), jnp.float32).astype(jnp.bfloat16)
+            for shape in ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d))]
+
+
+def _check_emulation(q, k, v, with_kernel=True, **opts):
+    emu = tc_bf16_emulation(to_torch(q), to_torch(k), to_torch(v), **opts)
+    assert torch.isfinite(emu.float()).all()
+    tol = TOL["bfloat16"]
+    np.testing.assert_allclose(to_f32(emu), to_f32(attention_ref(q, k, v, **opts)),
+                               atol=tol, rtol=tol)
+    if with_kernel:
+        kern = jax_flash(q, k, v, block_q=64, block_k=64, interpret=True, **opts)
+        np.testing.assert_allclose(to_f32(emu), to_f32(kern), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,d,causal,window,cap", ROWS)
+def test_tc_bf16_numerics_fit_the_bf16_bar(B, H, Hkv, S, d, causal, window, cap):
+    """Rounding P to bf16 before P.V keeps the route inside 2e-2 of the JAX
+    kernel and of its oracle over the reference's sweep (and d=256, g=10)."""
+    q, k, v = _bf16_case(B, H, Hkv, S, S, d, seed=11)
+    _check_emulation(q, k, v, causal=causal, window=window, softcap=cap)
+
+
+@pytest.mark.parametrize("Sq,Sk,d,causal,window", [
+    (100, 150, 64, True, None),       # causal over absolute indices, Sq < Sk
+    (150, 100, 64, True, None),       # Sq > Sk: the last rows see every key
+    (90, 140, 256, True, 60),         # d=256 with a window and Sq != Sk
+    (130, 64, 32, False, 40),         # window with Sq > Sk: no tile skipped, last
+                                      # rows all masked (Sk needs no padding)
+])
+def test_tc_bf16_numerics_with_sq_ne_sk(Sq, Sk, d, causal, window):
+    q, k, v = _bf16_case(1, 4, 2, Sq, Sk, d, seed=12)
+    _check_emulation(q, k, v, causal=causal, window=window, softcap=None)
+
+
+@pytest.mark.parametrize("S,d,with_kernel", [(128, 64, True), (70, 64, False),
+                                             (96, 256, False)])
+def test_tc_bf16_numerics_all_masked_rows(S, d, with_kernel):
+    """window=0 masks every key of every row: the route averages v over the Sk
+    keys as the oracle does (the JAX kernel agrees where Sk needs no padding;
+    ROADMAP.md queue 3)."""
+    q, k, v = _bf16_case(1, 2, 2, S, S, d, seed=13)
+    _check_emulation(q, k, v, with_kernel=with_kernel, causal=True, window=0,
+                     softcap=None)
+
+
+# ---- the launch planner ------------------------------------------------------------
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_plan_routes_by_dtype(d):
+    """bf16 goes to the tensor cores at every head dim, fp32 to CUDA cores."""
+    tc = plan(torch.bfloat16, d, 300, True)
+    assert tc.route == "tc_bf16" and (tc.block_q, tc.block_k) == TC_TILES
+    assert tc.block_q % 16 == 0 and tc.block_k % 16 == 0    # 16 rows per warp, k16 steps
+    core = plan(torch.float32, d, 300, True)
+    assert core.route == "cuda_core" and (core.block_q, core.block_k) == CORE_TILES
+    assert set(ROUTES) == {"tc_bf16", "cuda_core"}
+    with pytest.raises(TypeError):
+        plan(torch.float16, d, 300, True)
+    with pytest.raises(ValueError):
+        plan(torch.bfloat16, d + 16, 300, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,causal", [(2048, True), (64, True), (1, True),
+                                       (333, False), (2000, True)])
+def test_q_tile_order_is_a_heavy_first_permutation(dtype, Sq, causal):
+    p = plan(dtype, 64, Sq, causal)
+    order = q_tile_order(p)
+    assert p.n_q_tiles == -(-Sq // p.block_q)
+    assert sorted(order) == list(range(p.n_q_tiles))
+    work = [len(_kv_tile_range(p, t * p.block_q, Sq, Sq, causal, None)) for t in order]
+    if causal:
+        assert p.heavy_first and work == sorted(work, reverse=True)
+    else:
+        assert not p.heavy_first and order == list(range(p.n_q_tiles))
+
+
+def test_cpu_calls_count_no_route():
+    before = dict(flash_attention.launches_by_route)
+    q = torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16)
+    flash_attention(q, q, q)
+    assert flash_attention.launches_by_route == before
+

@@ -31,6 +31,9 @@ FLASH_ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap): tests/test_kernels
     (1, 2, 2, 70, 64, True, 0, None),             # every key masked
     (1, 10, 1, 2048, 256, True, 2048, None),      # recurrentgemma-2b local layer
     (2, 10, 1, 300, 256, True, 100, 30.0),
+    (1, 16, 8, 2048, 128, True, None, None),      # qwen3-1.7b prefill
+    (2, 8, 2, 333, 128, True, None, 50.0),
+    (1, 4, 2, 517, 256, True, 200, None),
 ]
 DECODE_ROWS = [  # (B, H, Hkv, S, d, softcap): tests/test_kernels.py:50-54
     (2, 4, 2, 300, 64, None),
@@ -54,6 +57,17 @@ def _card():
     return torch.device("cuda")
 
 
+def _gather_and_compare(pool, ids, dev):
+    for ids_in in (ids, ids.to(dev)):
+        before = page_gather.launches
+        out = page_gather(pool, ids_in)
+        torch.cuda.synchronize()
+        assert page_gather.launches == before + 1
+        ref = page_gather_plain(pool, ids.to(dev))
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16,
                                    torch.uint8])
@@ -63,14 +77,44 @@ def test_page_gather_kernel_bitwise_equals_plain(dtype):
     for P, E, K in [(64, 256, 20), (16, 128, 16), (8, 512, 1), (9, 4003, 5)]:
         pool = torch.from_numpy(rng.standard_normal((P, E)) * 10).to(dtype).to(dev)
         ids = torch.from_numpy(rng.integers(0, P, (K,), dtype=np.int32))
-        for ids_in in (ids, ids.to(dev)):
-            before = page_gather.launches
-            out = page_gather(pool, ids_in)
-            torch.cuda.synchronize()
-            assert page_gather.launches == before + 1
-            ref = page_gather_plain(pool, ids.to(dev))
-            assert out.dtype == ref.dtype and out.shape == ref.shape
-            assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+        _gather_and_compare(pool, ids, dev)
+
+
+@pytest.mark.gpu
+def test_page_gather_bulk_edges_bitwise():
+    """Rows of 4 MiB + 16 B (a last bulk item of 16 B), rows shorter than one
+    bulk item, rows with a byte tail, an unaligned view of the pool, and
+    repeated ids."""
+    dev = _card()
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for P, E in [(6, 4 * 2**20 + 16), (40, 48), (33, 1000), (5, 2**15 + 7)]:
+        pool = torch.randint(0, 256, (P, E), dtype=torch.uint8, generator=gen).to(dev)
+        ids = torch.cat([torch.randperm(P, generator=gen),
+                         torch.randint(0, P, (7,), generator=gen)]).to(torch.int32)
+        _gather_and_compare(pool, ids, dev)
+    flat = torch.randint(0, 256, (1 + 12 * 4096,), dtype=torch.uint8, generator=gen)
+    view = flat.to(dev)[1:].view(12, 4096)               # base 1 byte off alignment
+    assert view.is_contiguous() and view.data_ptr() % 16
+    _gather_and_compare(view, torch.tensor([3, 3, 0, 11, 5, 3], dtype=torch.int32), dev)
+    f32 = torch.randn((1 + 8 * 1024,), generator=gen).to(dev)[1:].view(8, 1024)
+    _gather_and_compare(f32, torch.tensor([7, 0, 7, 2], dtype=torch.int32), dev)
+
+
+@pytest.mark.gpu
+def test_page_gather_back_to_back_host_ids():
+    """Short host id lists ride in the launch parameters, long ones go
+    through pinned memory: back-to-back calls with other id lists, none
+    synchronized, still gather their own rows."""
+    dev = _card()
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    pool = torch.randint(0, 256, (64, 2**16), dtype=torch.uint8, generator=gen).to(dev)
+    sizes = [*torch.randint(1, 64, (20,), generator=gen).tolist(), 960, 961, 2000, 5]
+    id_lists = [torch.randint(0, 64, (n,), generator=gen, dtype=torch.int32)
+                for n in sizes]
+    outs = [page_gather(pool, ids) for ids in id_lists]
+    torch.cuda.synchronize()
+    for ids, out in zip(id_lists, outs):
+        assert torch.equal(out, pool[ids.long().to(dev)])
 
 
 @pytest.mark.gpu
@@ -85,11 +129,36 @@ def test_flash_attention_kernel_matches_plain(dtype):
                    for shape in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d)))
         opts = dict(causal=causal, window=window, softcap=cap)
         before = flash_attention.launches
+        route = "tc_bf16" if dtype == torch.bfloat16 else "cuda_core"
+        on_route = flash_attention.launches_by_route[route]
         out = flash_attention(q, k, v, **opts)
         torch.cuda.synchronize()
         assert flash_attention.launches == before + 1
+        assert flash_attention.launches_by_route[route] == on_route + 1
         ref = flash_attention_plain(q, k, v, **opts)
         assert out.dtype == dtype and torch.isfinite(out.float()).all()
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_ragged_and_all_masked(dtype):
+    """Sq != Sk (causal compares absolute indices), and rows whose keys are all
+    masked (window 0), which average v over the Sk keys as the plain version."""
+    dev = _card()
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    tol = TOL[dtype]
+    for (B, H, Hkv, Sq, Sk, d, causal, window) in [
+            (1, 4, 2, 100, 150, 64, True, None), (1, 4, 2, 150, 100, 64, True, None),
+            (1, 2, 2, 70, 70, 64, True, 0), (1, 2, 1, 90, 130, 256, True, 0),
+            (2, 4, 4, 33, 200, 128, False, 50)]:
+        q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(dev)
+                   for shape in ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
         np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                    atol=tol, rtol=tol)
 
