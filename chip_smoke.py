@@ -16,8 +16,11 @@ dense and the recurrent families, and checks them:
    rows shorter than one bulk item, 4 MiB + 16 B rows and an unaligned view
    of a pool; flash_attention and decode_attention within 2e-2 for bf16 and
    2e-5 for fp32, including all-masked rows, Sq != Sk, qwen3's d=128 prefill
-   and recurrentgemma's d=256, g=10 layers; diag_recurrence within 1e-4 at the
-   reference's sweep and at the RG-LRU and SSM-chunk shapes, h0 != 0);
+   and recurrentgemma's d=256, g=10 layers, and decode masks whose live
+   extent is a short prefix, wraps the ring or holds no valid slot;
+   diag_recurrence within 1e-4 at the reference's sweep and at the RG-LRU
+   shapes (S=512 and 2048, on the chunked route), and bitwise equal at the
+   SSM-chunk shape (on the sequential route), h0 != 0);
 4. the quickstart loop: three model images in one pool, two tenants per
    serving workload, baseline / warmswap under all four restore policies /
    prebaked, all giving equal classes; every flash_attention launch on the
@@ -26,10 +29,15 @@ dense and the recurrent families, and checks them:
    NO_PAGESERVER, restored leaves bitwise equal to the originals, prefill at
    S=64 and S=2048 with equal logits (flash_attention on the tensor-core
    route), and the kernel path against the plain path;
-6. kernel times (CUDA events around back-to-back calls, median of the runs
-   after warm-up) beside their bound, their plain version and one library
-   call (flash_attention also at S=64 and at qwen3's fp32 d=128 prefill),
-   page_gather's host time per call, and the qwen1.5 cold-start totals;
+6. kernel times (``repro_torch.kernels.sweep.cuda_ms``: CUDA events around
+   back-to-back calls queued behind a sleep kernel, so device time; median
+   of the runs after warm-up) beside their bound, their plain version and
+   one library call (flash_attention also at S=64 and at qwen3's fp32 d=128
+   prefill; decode_attention at qwen3's and recurrentgemma's decode,
+   diag_recurrence at falcon-mamba's SSM chunk and recurrentgemma's RG-LRU
+   prefill, each pair timed in turns, with a cold L2 as the main path finds
+   it and with a warm one), page_gather's host time per call, and the
+   qwen1.5 cold-start totals;
 7. serving on qwen3-1.7b at full width (28 layers, fp32, 6.9 GB image): a
    ReplicaSet of two replicas brought up from the pool (BULK), each with 4
    slots of 4096 positions, serves 8 requests (prompts of 512-2048 tokens, 64
@@ -51,8 +59,10 @@ dense and the recurrent families, and checks them:
 
 The launch counters are set to 0 just before each driven path (phases 4, 5,
 7, 8 and 9) and read just after; a kernel the path did not launch fails the
-run. Each phase frees its models before the next. Any failed check exits
-non-zero. The last line is the JSON device record.
+run; falcon-mamba's path must run diag_recurrence on its sequential route
+and recurrentgemma's on its chunked route. Each phase frees its models
+before the next. Any failed check exits non-zero. The last line is the JSON
+device record.
 """
 from __future__ import annotations
 
@@ -69,8 +79,6 @@ import time
 import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per the data sheet
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 QWEN_SEQS = (64, 2048)
 FLASH_SWEEP = [  # (B, H, Hkv, S, d, causal, window, softcap) as in tests/test_kernels.py
@@ -94,8 +102,13 @@ FLASH_GRIFFIN = (1, 10, 1, 2048, 256, 2048)   # recurrentgemma local layer: B, H
 FLASH_QWEN3 = (1, 16, 8, 2048, 128)           # qwen3-1.7b serving prefill (fp32): B, H, Hkv, S, d
 DECODE_GRIFFIN = (SERVE_SLOTS, 10, 1, 2048, 256)  # its decode: B, H, Hkv, C = window, d
 RECURRENCE_SWEEP = [(2, 100, 64), (1, 256, 32), (3, 17, 130), (1, 64, 2048)]  # test_kernels.py:68-70
-RECURRENCE_MAIN = [(1, 2048, 2560),      # recurrentgemma-2b RG-LRU prefill at S=2048
-                   (1, 256, 131072)]     # falcon-mamba-7b, one SSM chunk (256 x 8192 x 16)
+RECURRENCE_MAIN = {  # shape -> the route diag_recurrence's planner must take there
+    (1, 2048, 2560): "chunked",          # recurrentgemma-2b RG-LRU prefill at S=2048
+    (1, 512, 2560): "chunked",           # ... and at S=512
+    (1, 256, 131072): "sequential",      # falcon-mamba-7b, one SSM chunk (256 x 8192 x 16)
+}
+RECURRENCE_TIMED = {"falcon": (1, 256, 131072), "recurrentgemma": (1, 2048, 2560)}
+DECODE_TIMED = {"qwen3": DECODE_MAIN, "recurrentgemma": DECODE_GRIFFIN}
 RECURRENCE_TOL = 1e-4
 FALCON_ARCH = "falcon_mamba_7b"
 FALCON_SEQ = 2048
@@ -147,14 +160,16 @@ def reset_counts(kernels) -> None:
             k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
 
 
-def expect_route(tag: str, path: str, route: str) -> dict:
-    """Every flash_attention launch since the last reset went through ``route``
-    (``tc_bf16`` for bf16 images, ``cuda_core`` for fp32 ones)."""
-    from repro_torch.kernels import flash_attention
-    by_route = dict(flash_attention.launches_by_route)
-    log(f"[{tag}] flash_attention launches by route during the {path}: {by_route}")
-    expect(by_route[route] == flash_attention.launches > 0,
-           f"the {path} did not run flash_attention on the {route} route: {by_route}")
+def expect_route(tag: str, path: str, route: str, kernel: str = "flash_attention") -> dict:
+    """Every launch of ``kernel`` since the last reset went through ``route``
+    (flash_attention: ``tc_bf16`` for bf16 images, ``cuda_core`` for fp32
+    ones; diag_recurrence: ``sequential`` for falcon-mamba's SSM chunks,
+    ``chunked`` for recurrentgemma's RG-LRU prefills)."""
+    fn = kernel_fns()[kernel]
+    by_route = dict(fn.launches_by_route)
+    log(f"[{tag}] {kernel} launches by route during the {path}: {by_route}")
+    expect(by_route[route] == fn.launches > 0,
+           f"the {path} did not run {kernel} on the {route} route: {by_route}")
     return by_route
 
 
@@ -168,27 +183,6 @@ def free_device(tag: str) -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     torch.cuda.reset_peak_memory_stats()
     return peak
-
-
-def cuda_ms(fn, iters: int = 20, per: int = 10, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn`` in ms: ``iters`` timed runs of
-    ``per`` back-to-back calls each, between two CUDA events, so host-side
-    launch work overlaps the device as it does on the main path."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()  # timing runs on the card only
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per)
-    return statistics.median(times)
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -349,7 +343,9 @@ def check_flash(device, errs: dict) -> None:
 
 def _decode_masks(gen, B, S, device):
     """An (S,) random mask, a (B, S) ring mask with a window (rows at other
-    depths, some wrapped), and the same with its last row all invalid."""
+    depths, some wrapped), the same with its last row all invalid, a short
+    filled prefix in the long cache (a live extent far below S), and a
+    wrapped ring valid at both ends of every row."""
     import torch
     shared = torch.rand((S,), generator=gen, device=device) < 0.7
     shared[0] = True
@@ -362,7 +358,11 @@ def _decode_masks(gen, B, S, device):
     ring = (k_pos >= 0) & (k_pos <= now) & (now - k_pos < max(S // 3, 1))
     empty = ring.clone()
     empty[-1] = False
-    return [("shared", shared), ("ring", ring), ("row-empty", empty)]
+    slots = torch.arange(S, device=device)[None, :]
+    short = slots < torch.randint(1, 48, (B, 1), generator=gen, device=device)
+    wrapped = ((slots < S // 5) | (slots >= S - S // 3)).expand(B, S).contiguous()
+    return [("shared", shared), ("ring", ring), ("row-empty", empty),
+            ("short-prefix", short), ("wrapped", wrapped)]
 
 
 def check_decode(device, errs: dict) -> None:
@@ -370,7 +370,7 @@ def check_decode(device, errs: dict) -> None:
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     gen = torch.Generator(device=device).manual_seed(17)
-    worst = 0.0
+    worst: dict = {}
     shapes = DECODE_SWEEP + [(*DECODE_MAIN, None), (*DECODE_GRIFFIN, None)]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -391,26 +391,39 @@ def check_decode(device, errs: dict) -> None:
                          f"softcap={cap} mask={mname}")
                 expect(ok, f"decode_attention {label}: max |err| {err} over "
                        f"tolerance {tol}")
-                if (B, H, Hkv, S, d) == DECODE_MAIN and dtype == torch.float32:
-                    worst = max(worst, err)
+                for name, shape in DECODE_TIMED.items():
+                    if (B, H, Hkv, S, d) == shape and dtype == torch.float32:
+                        worst[name] = max(worst.get(name, 0.0), err)
                 n += 1
                 log(f"[3] decode_attention {label}: max |err| {err:.3e} (tol {tol})")
-    errs["decode_attention"] = worst
+    for name, err in worst.items():
+        errs[f"decode_attention:{name}"] = err
     log(f"[3] decode_attention: {n} cases within tolerance")
 
 
 def check_diag_recurrence(device, errs: dict) -> None:
+    """The reference's sweep and the model shapes on the route the planner
+    picks there (asserted for the model shapes): within 1e-4 of the plain
+    version, and bitwise equal to it on the sequential route."""
     import torch
     from repro_torch.kernels.diag_recurrence import diag_recurrence, diag_recurrence_plain
+    from repro_torch.kernels.diag_recurrence.ops import plan_recurrence
     gen = torch.Generator(device=device).manual_seed(19)
-    worst = 0.0
-    for (B, S, C) in RECURRENCE_SWEEP + RECURRENCE_MAIN:
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for (B, S, C) in RECURRENCE_SWEEP + list(RECURRENCE_MAIN):
         a = torch.rand((B, S, C), generator=gen, device=device) * 0.5 + 0.5
         b = torch.randn((B, S, C), generator=gen, device=device)
         h0 = torch.randn((B, C), generator=gen, device=device)
+        route = plan_recurrence(B, S, C, n_sms).route
+        before = diag_recurrence.launches_by_route[route]
         h_all, h_final = diag_recurrence(a, b, h0)
         ref_all, ref_final = diag_recurrence_plain(a, b, h0)
         sync(device)
+        expect(diag_recurrence.launches_by_route[route] == before + 1,
+               f"diag_recurrence B{B} S{S} C{C} did not launch its {route} route")
+        expect(RECURRENCE_MAIN.get((B, S, C), route) == route,
+               f"diag_recurrence B{B} S{S} C{C} planned {route}, want "
+               f"{RECURRENCE_MAIN.get((B, S, C))}")
         err = 0.0
         for out, ref in ((h_all, ref_all), (h_final, ref_final)):
             diff = (out - ref).abs()
@@ -419,11 +432,14 @@ def check_diag_recurrence(device, errs: dict) -> None:
                 (diff <= RECURRENCE_TOL + RECURRENCE_TOL * ref.abs()).all()),
                 f"diag_recurrence B{B} S{S} C{C}: max |err| {err} over {RECURRENCE_TOL}")
         expect(torch.equal(h_final, h_all[:, -1]), "h_final is not h_all[:, -1]")
-        if (B, S, C) == RECURRENCE_MAIN[1]:
-            worst = err
-        log(f"[3] diag_recurrence B{B} S{S} C{C} (h0 != 0): max |err| {err:.3e} "
-            f"(tol {RECURRENCE_TOL}); bitwise equal {torch.equal(h_all, ref_all)}")
-    errs["diag_recurrence"] = worst
+        bitwise = torch.equal(h_all, ref_all) and torch.equal(h_final, ref_final)
+        expect(route != "sequential" or bitwise,
+               f"diag_recurrence B{B} S{S} C{C}: the sequential route is not bitwise equal")
+        for name, shape in RECURRENCE_TIMED.items():
+            if (B, S, C) == shape:
+                errs[f"diag_recurrence:{name}"] = err
+        log(f"[3] diag_recurrence B{B} S{S} C{C} on {route} (h0 != 0): max |err| {err:.3e} "
+            f"(tol {RECURRENCE_TOL}); bitwise equal {bitwise}")
 
 
 # ---------------------------------------------------------------------------------
@@ -882,7 +898,10 @@ def phase_serving(device, arch: str, tag: str) -> dict:
     for name, n in counts.items():
         expect(n > 0, f"{name} was not launched by the serving path")
     expect_route(tag, "serving path (fp32)", "cuda_core")
-    out = {"counts": counts, "ttft_ms": statistics.mean(ttft) * 1e3,
+    routes = None
+    if "diag_recurrence" in kernels:     # every RG-LRU prefill is B=1: too few channels
+        routes = expect_route(tag, "serving path (fp32)", "chunked", kernel="diag_recurrence")
+    out = {"counts": counts, "diag_routes": routes, "ttft_ms": statistics.mean(ttft) * 1e3,
            "decode_step_ms": statistics.median(decode_s) * 1e3,
            "tokens_per_s": total_tokens / serve_s, "recover_warmswap_s": warm_s,
            "recover_baseline_s": cold_s}
@@ -1088,6 +1107,7 @@ def phase_falcon(device, tmp: str) -> dict:
     log(f"[{tag}] launches during the falcon path: {counts}")
     for name, n in counts.items():
         expect(n > 0, f"{name} was not launched by the falcon path")
+    routes = expect_route(tag, "falcon path", "sequential", kernel="diag_recurrence")
     log(f"[{tag}] bf16 prefill {FALCON_DECODE[0]} + {FALCON_DECODE[1]} decode steps vs "
         f"full forward: max |d logit| / max |logit| {worst:.4e} (tolerance "
         f"{BF16_DECODE_TOL}), argmax agreement {agree:.4f}")
@@ -1122,6 +1142,7 @@ def phase_falcon(device, tmp: str) -> dict:
     for k, n in counts.items():
         kernels[k].launches = n
     out["counts"] = counts
+    out["diag_routes"] = routes
     return out
 
 
@@ -1129,16 +1150,20 @@ def phase_falcon(device, tmp: str) -> dict:
 # 6. kernel times
 # ---------------------------------------------------------------------------------
 
-def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
-                griffin_decode_inputs) -> list:
+def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
+                path_routes: dict, decode_inputs: dict) -> list:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import (decode_attention, diag_recurrence, flash_attention,
                                      page_gather)
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.diag_recurrence import diag_recurrence_plain
+    from repro_torch.kernels.diag_recurrence.ops import plan_recurrence
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.page_gather import page_gather_plain
+    from repro_torch.kernels.sweep import (HBM_BYTES_PER_S, bound_ms, cold_copies,
+                                           cuda_ms, decode_work, l2_bytes,
+                                           recurrence_work)
 
     rows = []
     kernels = kernel_fns()
@@ -1173,6 +1198,7 @@ def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
     rows.append({"name": "page_gather", "route": "cuda",
                  "source": "src/repro_torch/csrc/page_gather.cu",
                  "replaces": "src/repro/kernels/page_gather/kernel.py:27",
+                 "shape": f"qwen1.5 store, {K} rows of {store.shape[1]} B, host ids",
                  "launches": launches["page_gather"], "max_abs_err": errs["page_gather"],
                  "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": "bytes",
                  "library_ms": t_l})
@@ -1190,9 +1216,7 @@ def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
         pairs = S * (S + 1) // 2                      # unmasked causal (q, k) pairs
         ops = 4 * B * H * d * pairs
         moved = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
-        t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        bound, by = bound_ms(moved, ops, torch.bfloat16)
         log(f"[6] flash_attention bf16 B{B} H{H}/{Hkv} S{S} d{d} causal: kernel "
             f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms "
             f"({by}), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
@@ -1200,6 +1224,7 @@ def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
+            "shape": f"qwen1.5 prefill bf16 B{B} H{H}/{Hkv} S{S} d{d} causal",
             "launches": launches["flash_attention"],
             "max_abs_err": errs["flash_attention"], "ms": t_k, "plain_ms": t_p,
             "bound_ms": bound, "bound_by": by, "library_ms": t_l}
@@ -1217,9 +1242,7 @@ def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
     pairs = sum(min(i + 1, window) for i in range(S))
     ops = 4 * B * H * d * pairs
     moved = 4 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
-    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    bound, by = bound_ms(moved, ops, torch.float32)
     log(f"[6] flash_attention fp32 B{B} H{H}/{Hkv} S{S} d{d} window {window}: kernel "
         f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms "
         f"({by}, fp32 CUDA-core peak), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
@@ -1235,72 +1258,104 @@ def phase_times(img, device, errs: dict, launches: dict, decode_inputs,
                                                          enable_gqa=True))
     ops = 4 * B * H * d * (S * (S + 1) // 2)
     moved = 4 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
-    bound, by = max((ops / PEAK_FLOPS["float32"] * 1e3, "operations"),
-                    (moved / HBM_BYTES_PER_S * 1e3, "bytes"))
+    bound, by = bound_ms(moved, ops, torch.float32)
     log(f"[6] flash_attention fp32 B{B} H{H}/{Hkv} S{S} d{d} causal: kernel {t_k:.4f} ms, "
         f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms ({by}, fp32 "
         f"CUDA-core peak), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
 
-    # decode_attention at the qwen3-1.7b decode shape (the row) and at
-    # recurrentgemma-2b's, on the first attention layer's cache and mask as each
-    # serving run left them; the bound counts the valid slots
-    def decode_times(inputs, H):
+    # decode_attention at qwen3-1.7b's and recurrentgemma-2b's decode, on the
+    # first attention layer's cache and mask as each serving run left them,
+    # timed in turns (qwen3, recurrentgemma, qwen3, recurrentgemma). On the
+    # main path each call reads its layer's cache after the other layers'
+    # weights, so L2 is cold: `ms` rotates over copies of the cache that move
+    # 4 L2 sizes between reuses; `warm_ms` calls one cache back to back. The
+    # bound counts the valid slots.
+    l2 = l2_bytes(device)
+
+    def decode_case(inputs, H):
         kc, vc, valid = inputs
+        q = torch.randn((kc.shape[0], H, kc.shape[3]), generator=gen, device=device,
+                        dtype=kc.dtype)
+        moved, ops = decode_work(q, kc, valid)
+        copies = cold_copies(lambda: (kc.clone(), vc.clone()), moved, l2)
+        return q, kc, vc, valid, moved, ops, copies
+
+    def rotate(fn, copies):
+        return [lambda c=c: fn(*c) for c in copies]
+
+    cases = {name: decode_case(decode_inputs[name], shape[1])
+             for name, shape in DECODE_TIMED.items()}
+    t_dec = {name: {"warm": [], "cold": []} for name in cases}
+    for _ in range(2):
+        for name, (q, kc, vc, valid, _, _, copies) in cases.items():
+            t_dec[name]["warm"].append(cuda_ms(lambda: decode_attention(q, kc, vc, valid)))
+            t_dec[name]["cold"].append(cuda_ms(rotate(
+                lambda k, v: decode_attention(q, k, v, valid), copies)))
+    for name, (q, kc, vc, valid, moved, ops, copies) in cases.items():
         B, Hkv, C, d = kc.shape
-        q = torch.randn((B, H, d), generator=gen, device=device, dtype=kc.dtype)
-        t_k = cuda_ms(lambda: decode_attention(q, kc, vc, valid))
-        t_p = cuda_ms(lambda: decode_attention_plain(q, kc, vc, valid))
+        H = q.shape[1]
+        (t_k, t_k2), (t_w, t_w2) = t_dec[name]["cold"], t_dec[name]["warm"]
+        t_p = cuda_ms(rotate(lambda k, v: decode_attention_plain(q, k, v, valid), copies))
         mask = valid[:, None, None, :]
-        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
-        t_k2 = cuda_ms(lambda: decode_attention(q, kc, vc, valid))
-        n_valid = int(valid.sum())
-        esize = kc.element_size()
-        moved = 2 * n_valid * Hkv * d * esize + 2 * B * H * d * esize + valid.numel()
-        ops = 4 * n_valid * H * d
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FLOPS[str(kc.dtype).split(".")[1]] * 1e3
-        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
-        full = 2 * kc.numel() * esize / HBM_BYTES_PER_S * 1e3
-        log(f"[6] decode_attention {str(kc.dtype).split('.')[1]} B{B} H{H}/{Hkv} C{C} "
-            f"d{d}, {n_valid} of {B * C} slots valid: kernel {t_k:.4f} / {t_k2:.4f} ms "
-            f"({moved / (t_k * 1e-3) / 1e9:.1f} GB/s of needed bytes), plain {t_p:.4f} ms, "
-            f"sdpa {t_l:.4f} ms, bound {bound:.5f} ms ({by}); the whole cache would be "
-            f"{full:.5f} ms")
-        return {"name": "decode_attention", "route": "cuda",
-                "source": "src/repro_torch/csrc/decode_attention.cu",
-                "replaces": "src/repro/kernels/decode_attention/kernel.py:72",
-                "launches": launches["decode_attention"],
-                "max_abs_err": errs["decode_attention"], "ms": t_k, "plain_ms": t_p,
-                "bound_ms": bound, "bound_by": by, "library_ms": t_l}
+        t_l = cuda_ms(rotate(lambda k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), copies))
+        bound, by = bound_ms(moved, ops, kc.dtype)
+        full = 2 * kc.numel() * kc.element_size() / HBM_BYTES_PER_S * 1e3
+        log(f"[6] decode_attention {name} {str(kc.dtype).split('.')[1]} B{B} H{H}/{Hkv} "
+            f"C{C} d{d}, {int(valid.sum())} of {B * C} slots valid: kernel cold L2 "
+            f"{t_k:.4f} / {t_k2:.4f} ms ({moved / (t_k * 1e-3) / 1e9:.1f} GB/s of needed "
+            f"bytes, {bound / t_k:.4f} of the bound; {len(copies)} caches rotated), warm "
+            f"L2 {t_w:.4f} / {t_w2:.4f} ms; plain {t_p:.4f} ms, sdpa {t_l:.4f} ms (cold); "
+            f"bound {bound:.5f} ms ({by}); the whole cache would be {full:.5f} ms")
+        rows.append({"name": "decode_attention", "route": "cuda",
+                     "source": "src/repro_torch/csrc/decode_attention.cu",
+                     "replaces": "src/repro/kernels/decode_attention/kernel.py:72",
+                     "shape": f"{name} decode B{B} H{H}/{Hkv} C{C} d{d}",
+                     "launches": path_counts[name]["decode_attention"],
+                     "max_abs_err": errs[f"decode_attention:{name}"], "ms": t_k,
+                     "warm_ms": t_w, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                     "library_ms": t_l})
+    del cases
 
-    rows.append(decode_times(decode_inputs, DECODE_MAIN[1]))
-    decode_times(griffin_decode_inputs, DECODE_GRIFFIN[1])
-
-    # diag_recurrence at the RG-LRU prefill shape and at one SSM chunk (the
-    # row: falcon-mamba launches it 512 times per 2048-token forward)
-    for (B, S, C) in RECURRENCE_MAIN:
+    # diag_recurrence at one falcon-mamba SSM chunk (sequential route) and at
+    # recurrentgemma's RG-LRU prefill (chunked route), timed in turns, cold L2
+    # (rotating over copies of a and b) and warm
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rec_in = {}
+    for name, (B, S, C) in RECURRENCE_TIMED.items():
         a = torch.rand((B, S, C), generator=gen, device=device) * 0.5 + 0.5
         b = torch.randn((B, S, C), generator=gen, device=device)
         h0 = torch.randn((B, C), generator=gen, device=device)
-        t_k = cuda_ms(lambda: diag_recurrence(a, b, h0))
+        moved, ops = recurrence_work(a)
+        rec_in[name] = (a, b, h0, moved, ops,
+                        cold_copies(lambda: (a.clone(), b.clone(), h0), moved, l2))
+    t_rec = {name: {"warm": [], "cold": []} for name in rec_in}
+    for _ in range(2):
+        for name, (a, b, h0, _, _, copies) in rec_in.items():
+            t_rec[name]["warm"].append(cuda_ms(lambda: diag_recurrence(a, b, h0)))
+            t_rec[name]["cold"].append(cuda_ms(rotate(diag_recurrence, copies)))
+    for name, (a, b, h0, moved, ops, copies) in rec_in.items():
+        B, S, C = a.shape
+        (t_k, t_k2), (t_w, t_w2) = t_rec[name]["cold"], t_rec[name]["warm"]
         t_p = cuda_ms(lambda: diag_recurrence_plain(a, b, h0), iters=3, per=2, warmup=1)
-        t_k2 = cuda_ms(lambda: diag_recurrence(a, b, h0))
-        moved = 3 * B * S * C * 4 + 2 * B * C * 4      # a, b, h_all; h0, h_final
-        ops = 2 * B * S * C
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FLOPS["float32"] * 1e3
-        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
-        log(f"[6] diag_recurrence fp32 B{B} S{S} C{C}: kernel {t_k:.4f} / {t_k2:.4f} ms "
-            f"({moved / (t_k * 1e-3) / 1e9:.1f} GB/s), plain {t_p:.4f} ms, bound "
-            f"{bound:.5f} ms ({by}); no single PyTorch call computes it")
-        row = {"name": "diag_recurrence", "route": "cuda",
-               "source": "src/repro_torch/csrc/diag_recurrence.cu",
-               "replaces": "src/repro/kernels/diag_recurrence/kernel.py:47",
-               "launches": launches["diag_recurrence"],
-               "max_abs_err": errs["diag_recurrence"], "ms": t_k, "plain_ms": t_p,
-               "bound_ms": bound, "bound_by": by, "library_ms": None}
-    rows.append(row)
+        bound, by = bound_ms(moved, ops, a.dtype)
+        plan = plan_recurrence(B, S, C, n_sms)
+        log(f"[6] diag_recurrence {name} fp32 B{B} S{S} C{C} on {plan.route} (chunk "
+            f"{plan.chunk}, {plan.n_chunks} chunks): kernel cold L2 {t_k:.4f} / "
+            f"{t_k2:.4f} ms ({moved / (t_k * 1e-3) / 1e9:.1f} GB/s, {bound / t_k:.4f} of "
+            f"the bound; {len(copies)} input sets rotated), warm L2 {t_w:.4f} / "
+            f"{t_w2:.4f} ms; plain {t_p:.4f} ms, bound {bound:.5f} ms ({by}); no single "
+            f"PyTorch call computes it")
+        rows.append({"name": "diag_recurrence", "route": "cuda",
+                     "source": "src/repro_torch/csrc/diag_recurrence.cu",
+                     "replaces": "src/repro/kernels/diag_recurrence/kernel.py:47",
+                     "shape": f"{name} B{B} S{S} C{C} ({plan.route})",
+                     "launches": path_counts[name]["diag_recurrence"],
+                     "launches_by_route": path_routes[name],
+                     "max_abs_err": errs[f"diag_recurrence:{name}"], "ms": t_k,
+                     "warm_ms": t_w, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None})
+    del rec_in
     for name, n in saved.items():                     # timing launches do not count
         kernels[name].launches = n
     return rows
@@ -1351,8 +1406,12 @@ def main() -> int:
         peaks.append(free_device("9"))
     launches = {k: sum(c.get(k, 0) for c in counts) for k in kernel_fns()}
     log(f"[6] launches on the main paths: {launches}")
-    rows = phase_times(qimg, device, errs, launches, serving.pop("decode_inputs"),
-                       griffin.pop("decode_inputs"))
+    path_counts = {"qwen3": counts[2], "falcon": counts[3], "recurrentgemma": counts[4]}
+    path_routes = {"falcon": falcon.pop("diag_routes"),
+                   "recurrentgemma": griffin.pop("diag_routes")}
+    rows = phase_times(qimg, device, errs, launches, path_counts, path_routes,
+                       {"qwen3": serving.pop("decode_inputs"),
+                        "recurrentgemma": griffin.pop("decode_inputs")})
     log(f"[6] qwen1.5-0.5b cold start, median of 3 (s): {json.dumps(qwen_cold)}")
     log(f"[7] serving summary: {json.dumps(serving)}")
     log(f"[8] falcon-mamba-7b summary: {json.dumps(falcon)}")

@@ -8,29 +8,33 @@ logits at the finite ``NEG_INF``. The mask is ``(S,)`` as in the reference, or
 ``(B, S)``, one row per batch entry, as the model's per-slot ring positions
 need (``models/attention.py`` builds it from ``k_pos``).
 
-On the card it is bound by bytes: each decode step streams the cache once. The
-CUDA kernel (``csrc/decode_attention.cu``) reads each K/V row once with 16-byte
-loads and computes all ``g`` grouped heads from it, keeps the online softmax in
-registers, skips steps of a row whose slots are all invalid, and splits the
-cache across blocks so a small decode batch still fills the card; a second
-kernel merges the splits.
+On the card it is bound by bytes: each decode step streams the filled part
+of the cache once. The CUDA kernel (``csrc/decode_attention.cu``) cuts each
+(batch, kv head) row's live extent, its first to its last valid slot, found
+on the device, into ``n_splits`` shares (:func:`split_range`); the host picks
+``n_splits`` from the batch and the card alone (:func:`plan_splits`), with no
+sync. Each block streams its share through a ring of shared-memory stages
+with ``cp.async``, computes all ``g`` grouped heads from each K/V tile, keeps
+the online softmax in fp32, and skips tiles whose slots are all invalid; a
+second kernel merges the splits.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import check, library
+from repro_torch.kernels.build import check, library, on_device
 
 NEG_INF = -2.0e38
 HEAD_DIMS = (32, 64, 128, 256)
 GROUPS = (1, 2, 4, 8, 10)
-SPLIT_ALIGN = 64                 # split lengths are multiples of this many slots
-BLOCKS_PER_SM = 2                # the split count aims at this many blocks per SM
+TILE = 32                        # cache rows per pipeline stage in the kernel
+MAX_SPLITS = 4096                # the combine kernel's limit
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -55,24 +59,52 @@ def decode_attention_plain(q, k_cache, v_cache, valid, *, softcap=None,
     return out.reshape(B, H, d).to(q.dtype)
 
 
-def plan_splits(B: int, Hkv: int, S: int, n_sms: int) -> Tuple[int, int]:
-    """``(n_splits, split_len)``: cut the cache into ranges of ``split_len``
-    slots (a multiple of :data:`SPLIT_ALIGN`) so that ``B * Hkv * n_splits``
-    blocks give about :data:`BLOCKS_PER_SM` per SM."""
-    chunks = -(-S // SPLIT_ALIGN)
-    want = max(1, -(-BLOCKS_PER_SM * n_sms // (B * Hkv)))
-    n = min(want, chunks)
-    split_len = -(-chunks // n) * SPLIT_ALIGN
-    return -(-S // split_len), split_len
+def plan_splits(B: int, Hkv: int, S: int, n_sms: int, blocks_per_sm: int) -> int:
+    """``n_splits``: how many blocks share each (batch, kv head) row, so that
+    the ``B * Hkv * n_splits`` blocks fill the card in one wave
+    (``blocks_per_sm`` resident per SM) and no row has more splits than
+    tiles. Reads no mask: the kernel cuts each row's live extent itself."""
+    fit = max(1, n_sms * blocks_per_sm // (B * Hkv))
+    return min(fit, -(-S // TILE), MAX_SPLITS)
 
 
+def split_range(lo: int, hi: int, split: int, n_splits: int,
+                tile: int = TILE) -> Tuple[int, int]:
+    """``[s0, s1)``, the slots split ``split`` of ``n_splits`` takes of a row
+    whose live extent is ``[lo, hi]`` (empty when ``s0 == s1``), as the kernel
+    computes it: shares of ``ceil(len / n_splits)`` slots rounded up to whole
+    tiles, in order, so they cover ``[lo, hi]`` once and split 0 starts at
+    ``lo``. A row with no valid slot has the extent ``[0, S - 1]``."""
+    per = -(-(hi - lo + 1) // n_splits)
+    share = -(-per // tile) * tile
+    s1 = min(hi + 1, lo + (split + 1) * share)
+    return min(s1, lo + split * share), s1
+
+
+@functools.lru_cache(maxsize=None)
 def _launch_fn():
     fn = library("decode_attention").decode_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(device_index: int, d: int, dtype: torch.dtype, g: int) -> int:
+    """How many split-kernel blocks fit on one SM at this configuration (its
+    shared-memory ring sets it), from the CUDA occupancy query."""
+    fn = library("decode_attention").decode_attention_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with on_device(torch.device("cuda", device_index)):
+        check(fn(d, _DTYPE_CODES[dtype], g, ctypes.byref(n)), "decode_attention occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"decode_attention: no block fits an SM at d={d}, "
+                           f"{dtype}, g={g}")
+    return n.value
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -117,25 +149,38 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise ValueError("q and the cache must be contiguous and 16-byte aligned")
     if B * Hkv > 65535:
         raise ValueError(f"B*Hkv = {B * Hkv} exceeds the grid limit 65535")
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    fit = blocks_per_sm(q.device.index if q.device.index is not None
+                        else torch.cuda.current_device(), d, q.dtype, H // Hkv)
+    return launch_splits(q, k_cache, v_cache, valid, plan_splits(B, Hkv, S, n_sms, fit),
+                         softcap=softcap, scale=scale)
+
+
+def launch_splits(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  valid: torch.Tensor, n_splits: int, *, softcap: Optional[float] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors that :func:`decode_attention` has
+    checked, with ``n_splits`` blocks per (batch, kv head) row (the planner's
+    choice there; other counts for a sweep). Counted in
+    ``decode_attention.launches``."""
+    B, H, d = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
     mask = (valid if valid.dtype == torch.bool else valid != 0).contiguous().view(
         torch.uint8)
-    n_splits, split_len = plan_splits(
-        B, Hkv, S, torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty_like(q)
     part = (torch.empty(B * H * n_splits * (d + 2), dtype=torch.float32,
                         device=q.device) if n_splits > 1 else None)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    fn = _launch_fn()
-    with torch.cuda.device(q.device):
+    with on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    mask.data_ptr(), out.data_ptr(),
-                    part.data_ptr() if part is not None else None,
-                    B, H, Hkv, S, d, _DTYPE_CODES[q.dtype],
-                    S if valid.dim() == 2 else 0, float(scale),
-                    int(softcap is not None),
-                    float(softcap) if softcap is not None else 0.0,
-                    n_splits, split_len, stream)
+        status = _launch_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                              mask.data_ptr(), out.data_ptr(),
+                              part.data_ptr() if part is not None else None,
+                              B, H, Hkv, S, d, _DTYPE_CODES[q.dtype],
+                              S if valid.dim() == 2 else 0, float(scale),
+                              int(softcap is not None),
+                              float(softcap) if softcap is not None else 0.0,
+                              n_splits, stream)
     check(status, "decode_attention")
     with _count_lock:
         decode_attention.launches += 1

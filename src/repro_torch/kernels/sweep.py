@@ -1,0 +1,259 @@
+"""The kernels' yardstick on the card, and sweeps of the planners' choices.
+
+    PYTHONPATH=src python -m repro_torch.kernels.sweep [--main] [--out FILE]
+
+The yardstick (:func:`cuda_ms`, :func:`cold_copies`, :func:`bound_ms` and
+the work counts) is the one ``chip_smoke.py``'s phase 6 times with too.
+
+Without ``--main`` it sweeps decode_attention's split count and its fixed
+cost against how much of each row is filled, and diag_recurrence's two
+routes and chunk lengths across channel counts, to place the threshold
+between the routes (``diag_recurrence.ops.SEQUENTIAL_MIN_THREADS_PER_SM``).
+
+``--main`` times both kernels at the main paths' shapes through their public
+wrappers only, on three clocks: device time with a warm L2, device time with
+a cold L2, and host-paced (back-to-back calls without the sleep ahead, so a
+call shorter than its wrapper's host work reads the host's pace). Since it
+calls nothing else of the package, the same file, copied into an earlier
+tree's ``repro_torch/kernels/``, times that tree's kernels on the same clocks.
+
+Prints one JSON line per measurement and the card's name and power limit;
+needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as dec
+from repro_torch.kernels.diag_recurrence import ops as rec
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense, per the data sheet
+PRIME_CYCLES = 3_000_000       # sleep ahead of each timed run: ~1.7 ms at 1.75 GHz
+L2_SPAN = 4                    # a cold rotation moves this many L2 sizes between reuses
+
+
+def cuda_ms(fn, iters: int = 20, per: int = 10, warmup: int = 3,
+            prime: bool = True) -> float:
+    """Median time of one call in ms: ``iters`` runs of ``per`` back-to-back
+    calls between two CUDA events. ``fn`` is a callable, or a list of
+    callables called in turn across all runs (see :func:`cold_copies`).
+    With ``prime`` each run is queued behind a sleep kernel, so the host has
+    enqueued the calls before the first starts and a call shorter than its
+    own host work (a decode call's 10-25 us against its wrapper's 30-60 us)
+    reads device time; without it the runs read the host's pace."""
+    fns = itertools.cycle(fn if isinstance(fn, list) else [fn])
+    for _ in range(warmup):
+        next(fns)()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        if prime:
+            torch.cuda._sleep(PRIME_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per):
+            next(fns)()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+def l2_bytes(device) -> int:
+    return getattr(torch.cuda.get_device_properties(device), "L2_cache_size", 50 << 20)
+
+
+def cold_copies(make, nbytes: int, l2: int) -> list:
+    """Enough results of ``make()`` (fresh copies of one call's inputs) that
+    calls rotating over them move :data:`L2_SPAN` L2 sizes (``l2``) of
+    ``nbytes`` each before an input comes round again: each call then finds
+    its inputs in device memory, not in L2, as a layer's call on the main
+    path does after the other layers' weights have passed through."""
+    return [make() for _ in range(max(2, -(-L2_SPAN * l2 // nbytes)))]
+
+
+def bound_ms(moved: int, ops: int, dtype: torch.dtype):
+    """(ms, "bytes" or "operations"): the larger of ``moved`` bytes over the
+    memory rate and ``ops`` operations over the peak rate for ``dtype``."""
+    return max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (ops / PEAK_FLOPS[dtype] * 1e3, "operations"))
+
+
+def decode_work(q, k_cache, valid):
+    """(bytes, operations) one decode_attention call needs: the valid K/V
+    rows read once, q read and the output written once, the mask read once."""
+    B, H, d = q.shape
+    Hkv = k_cache.shape[1]
+    esize = k_cache.element_size()
+    n_valid = int(valid.expand(B, valid.shape[-1]).sum())
+    return (2 * n_valid * Hkv * d * esize + 2 * B * H * d * esize + valid.numel(),
+            4 * n_valid * H * d)
+
+
+def recurrence_work(a):
+    """(bytes, operations) of one diag_recurrence call: a, b and h_all once,
+    h0 and h_final once, in fp32."""
+    B, S, C = a.shape
+    return 3 * B * S * C * 4 + 2 * B * C * 4, 2 * B * S * C
+
+
+def card() -> str:
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(0) + ", power limit not read"
+
+
+def decode_cases(gen, device):
+    """(label, q, k, v, valid): qwen3-1.7b's and recurrentgemma-2b's decode
+    shapes, each row filled to a prompt of 512-2048 tokens plus 64 decoded."""
+    for label, (B, H, Hkv, C, d) in (("qwen3", (4, 16, 8, 4096, 128)),
+                                     ("recurrentgemma", (4, 10, 1, 2048, 256))):
+        q = torch.randn((B, H, d), generator=gen, device=device)
+        k = torch.randn((B, Hkv, C, d), generator=gen, device=device)
+        v = torch.randn((B, Hkv, C, d), generator=gen, device=device)
+        fill = torch.randint(512, 2049, (B,), generator=gen, device=device) + 64
+        valid = torch.arange(C, device=device)[None, :] < fill.clamp(max=C)[:, None]
+        yield label, q, k, v, valid
+
+
+RECURRENCE_CASES = {"falcon": (1, 256, 131072), "recurrentgemma": (1, 2048, 2560)}
+
+
+def time_main(device, rows: list) -> None:
+    """Both kernels at the main paths' shapes, through their wrappers only:
+    warm-L2 and cold-L2 device time and the host-paced time, in that order,
+    twice in turns."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    l2 = l2_bytes(device)
+    cases = []
+    for label, q, k, v, valid in decode_cases(gen, device):
+        moved, ops = decode_work(q, k, valid)
+        copies = cold_copies(lambda: (k.clone(), v.clone()), moved, l2)
+        cases.append(("decode_attention", label, (moved, ops, q.dtype),
+                      lambda q=q, k=k, v=v, m=valid: dec.decode_attention(q, k, v, m),
+                      [lambda q=q, kv=kv, m=valid: dec.decode_attention(q, *kv, m)
+                       for kv in copies]))
+    for label, (B, S, C) in RECURRENCE_CASES.items():
+        a = torch.rand((B, S, C), generator=gen, device=device) * 0.5 + 0.5
+        b = torch.randn((B, S, C), generator=gen, device=device)
+        h0 = torch.randn((B, C), generator=gen, device=device)
+        moved, ops = recurrence_work(a)
+        copies = cold_copies(lambda: (a.clone(), b.clone(), h0), moved, l2)
+        cases.append(("diag_recurrence", label, (moved, ops, a.dtype),
+                      lambda a=a, b=b, h0=h0: rec.diag_recurrence(a, b, h0),
+                      [lambda abh=abh: rec.diag_recurrence(*abh) for abh in copies]))
+    for turn, (kernel, label, work, warm, cold) in itertools.product(range(2), cases):
+        bound, by = bound_ms(*work)
+        row = {"kernel": kernel, "shape": label, "turn": turn,
+               "warm_ms": cuda_ms(warm), "cold_ms": cuda_ms(cold),
+               "host_paced_ms": cuda_ms(warm, prime=False),
+               "bound_ms": bound, "bound_by": by, "cold_copies": len(cold)}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+
+def sweep_decode(device, rows: list) -> None:
+    gen = torch.Generator(device=device).manual_seed(5)
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for label, q, k, v, valid in decode_cases(gen, device):
+        B, H, d = q.shape
+        Hkv, C = k.shape[1], k.shape[2]
+        fit = dec.blocks_per_sm(device.index or 0, d, q.dtype, H // Hkv)
+        planned = dec.plan_splits(B, Hkv, C, n_sms, fit)
+        bound, _ = bound_ms(*decode_work(q, k, valid), q.dtype)
+        ref = dec.decode_attention_plain(q, k, v, valid)
+        for n in sorted({1, max(1, planned // 2), planned, 2 * planned, 4 * planned,
+                         8 * planned}):
+            out = dec.launch_splits(q, k, v, valid, n)
+            err = float((out - ref).abs().max())
+            t = cuda_ms(lambda: dec.launch_splits(q, k, v, valid, n))
+            rows.append({"kernel": "decode_attention", "shape": label, "n_splits": n,
+                         "planned": n == planned, "blocks_per_sm": fit, "ms": t,
+                         "bound_ms": bound, "max_abs_err": err})
+            print(json.dumps(rows[-1]), flush=True)
+
+
+def sweep_decode_fill(device, rows: list) -> None:
+    """decode_attention against how much of each row is filled (a prefix of
+    ``fill`` slots in every row), with one split and with the planner's:
+    the time at the smallest fill is the fixed cost of the launches."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for label, q, k, v, _ in decode_cases(gen, device):
+        B, H, d = q.shape
+        Hkv, C = k.shape[1], k.shape[2]
+        planned = dec.plan_splits(B, Hkv, C, n_sms,
+                                  dec.blocks_per_sm(device.index or 0, d, q.dtype, H // Hkv))
+        for fill in (8, 64, 256, 1024, C):
+            valid = (torch.arange(C, device=device) < fill).expand(B, C).contiguous()
+            for n in sorted({1, planned}):
+                t = cuda_ms(lambda: dec.launch_splits(q, k, v, valid, n))
+                rows.append({"kernel": "decode_attention", "shape": label, "fill": fill,
+                             "n_splits": n, "planned": n == planned, "ms": t})
+                print(json.dumps(rows[-1]), flush=True)
+
+
+def sweep_recurrence(device, rows: list) -> None:
+    """Both routes across channel counts: the sequential route, the planner's
+    chunking, and chunks of 32-256 rows (2 to MAX_CHUNKS chunks)."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for S in (512, 2048):
+        for C in (2560, 5120, 10240, 20480, 40960, 81920, 131072):
+            a = torch.rand((1, S, C), generator=gen, device=device) * 0.5 + 0.5
+            b = torch.randn((1, S, C), generator=gen, device=device)
+            h0 = torch.randn((1, C), generator=gen, device=device)
+            bound, _ = bound_ms(*recurrence_work(a), a.dtype)
+            chosen = rec.plan_recurrence(1, S, C, n_sms)
+            plans = [rec.RecurrencePlan("sequential", S, 1), chosen]
+            for chunk in (32, 64, 128, 256):
+                n_chunks = -(-S // chunk)
+                if 2 <= n_chunks <= rec.MAX_CHUNKS:
+                    plans.append(rec.RecurrencePlan("chunked", chunk, n_chunks))
+            for p in dict.fromkeys(plans):
+                t = cuda_ms(lambda: rec.run_plan(a, b, h0, p))
+                rows.append({"kernel": "diag_recurrence", "S": S, "C": C, "route": p.route,
+                             "chunk": p.chunk, "n_chunks": p.n_chunks,
+                             "planned": p == chosen, "ms": t, "bound_ms": bound})
+                print(json.dumps(rows[-1]), flush=True)
+            del a, b, h0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--main", action="store_true",
+                    help="time both kernels at the main paths' shapes on three clocks")
+    ap.add_argument("--out", help="also write the rows as JSON to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device: the sweep times kernels on the card", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    print(card(), flush=True)
+    rows: list = []
+    if args.main:
+        time_main(device, rows)
+    else:
+        sweep_decode(device, rows)
+        sweep_decode_fill(device, rows)
+        sweep_recurrence(device, rows)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card(), "rows": rows}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,7 +14,8 @@ import torch
 from repro.kernels import decode_attention as jax_decode, decode_attention_ref
 from repro.models import attention as jattn
 from repro_torch.kernels import decode_attention, decode_attention_plain
-from repro_torch.kernels.decode_attention.ops import SPLIT_ALIGN, plan_splits
+from repro_torch.kernels.decode_attention.ops import (NEG_INF, TILE, plan_splits,
+                                                      split_range)
 from repro_torch.models import attention as tattn
 from tests._torch_parity import to_f32, to_torch
 
@@ -139,12 +140,154 @@ def test_reference_kernel_counts_padded_slots_in_all_invalid_rows():
 @pytest.mark.parametrize("B,Hkv,S", [(4, 8, 4096), (1, 1, 64), (1, 8, 300),
                                      (8, 16, 65), (64, 8, 4096), (2, 2, 1)])
 def test_split_plan_covers_the_cache(B, Hkv, S):
-    n, split_len = plan_splits(B, Hkv, S, n_sms=132)
-    assert split_len % SPLIT_ALIGN == 0
-    assert (n - 1) * split_len < S <= n * split_len        # every slot, no empty split
-    if B * Hkv < 132 and S >= 2 * SPLIT_ALIGN:
+    """The plan fills the card in one wave (two blocks per SM here), gives no
+    row more splits than tiles, splits a small batch, and its shares of a
+    row's whole extent cover every slot."""
+    n = plan_splits(B, Hkv, S, n_sms=132, blocks_per_sm=2)
+    assert 1 <= n <= -(-S // TILE)
+    assert B * Hkv * n <= max(B * Hkv, 2 * 132)
+    if 2 * B * Hkv <= 2 * 132 and S >= 2 * TILE:
         assert n > 1                                       # a small batch is split
-    assert B * Hkv * n <= 2 * 132 + B * Hkv
+    slots = [j for sp in range(n) for j in range(*split_range(0, S - 1, sp, n))]
+    assert slots == list(range(S))
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 7, 8, 33, 200])
+def test_split_range_covers_the_extent_exactly_once(n_splits):
+    """For every extent [lo, hi], the shares are whole tiles but the last, in
+    order, disjoint, and cover [lo, hi] exactly once; split 0 starts at lo and
+    is never empty; later splits may be empty."""
+    rng = np.random.default_rng(n_splits)
+    extents = [(0, 0), (5, 5), (0, 4095), (17, 2111), (3000, 4095), (0, 31), (31, 32)]
+    extents += [tuple(sorted(rng.integers(0, 5000, 2))) for _ in range(20)]
+    for lo, hi in extents:
+        ranges = [split_range(int(lo), int(hi), sp, n_splits) for sp in range(n_splits)]
+        assert ranges[0][0] == lo and ranges[0][1] > lo
+        slots = [j for s0, s1 in ranges for j in range(s0, s1)]
+        assert slots == list(range(lo, hi + 1))
+        for s0, s1 in ranges:
+            assert s0 <= s1 and (s1 == hi + 1 or (s1 - s0) % TILE == 0)
+
+
+def _weight(m, mn):
+    """exp(m - mn), a -inf max (an empty state) weighing exactly 0."""
+    return torch.where(m == -torch.inf, torch.zeros_like(m), torch.exp(m - mn))
+
+
+def _emulate_split_kernel(q, k, v, valid, n_splits, softcap=None):
+    """The CUDA kernel's algorithm in fp32 PyTorch: each (b, kv head) row's
+    live extent from its mask, split_range shares of it, tiles of TILE slots
+    (all-invalid tiles skipped unless the extent is dense or the row has no
+    valid slot), the online softmax per tile, one partial state per split
+    (m = -inf, l = 0, acc = 0 when empty), and the combine."""
+    B, H, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / np.sqrt(d)
+    mask = valid.bool().expand(B, S) if valid.dim() == 1 else valid.bool()
+    qf = q.float().reshape(B, Hkv, g, d)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, Hkv, g, d))
+    for b in range(B):
+        row = mask[b]
+        idx = torch.nonzero(row).flatten()
+        row_any = len(idx) > 0
+        lo, hi = (int(idx[0]), int(idx[-1])) if row_any else (0, S - 1)
+        dense = not row_any or len(idx) == hi - lo + 1
+        for h in range(Hkv):
+            states = []
+            for sp in range(n_splits):
+                s0, s1 = split_range(lo, hi, sp, n_splits)
+                m = torch.full((g,), -torch.inf)
+                l, acc = torch.zeros(g), torch.zeros((g, d))
+                for ts in range(s0, s1, TILE):
+                    te = min(ts + TILE, s1)
+                    if not dense and not bool(row[ts:te].any()):
+                        continue
+                    s = qf[b, h] @ kf[b, h, ts:te].T * scale
+                    if softcap is not None:
+                        s = softcap * torch.tanh(s / softcap)
+                    ok = row[ts:te] if row_any else torch.zeros(te - ts, dtype=torch.bool)
+                    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+                    m_new = torch.maximum(m, s.max(-1).values)
+                    alpha = _weight(m, m_new)
+                    p = torch.exp(s - m_new[:, None])
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + p @ vf[b, h, ts:te]
+                    m = m_new
+                states.append((m, l, acc))
+            m, l, acc = states[0]
+            assert bool(torch.isfinite(m).all())                 # split 0 is never empty
+            for mo, lo_, ao in states[1:]:
+                mn = torch.maximum(m, mo)
+                wa, wb = _weight(m, mn), _weight(mo, mn)
+                l, acc, m = l * wa + lo_ * wb, acc * wa[:, None] + ao * wb[:, None], mn
+            out[b, h] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out.reshape(B, H, d).to(q.dtype)
+
+
+def _extent_masks(B, S, rng):
+    """(name, (B, S) bool mask) for the masks the device-side extent meets."""
+    ring = np.zeros((B, S), bool)
+    for b in range(B):                                    # rows at other depths
+        ring[b, :int(rng.integers(1, S))] = True
+    wrapped = np.zeros((B, S), bool)
+    wrapped[:, :40] = True                                # the ring's head...
+    wrapped[:, S - 70:] = True                            # ...and its tail
+    short = np.zeros((B, S), bool)
+    short[:, 3:9] = True                                  # extent << S
+    holes = rng.random((B, S)) < 0.3                      # invalid slots inside
+    holes[:, 100:180] = False                             # whole tiles of them
+    holes[:, 0] = True
+    empty = ring.copy()
+    empty[-1] = False                                     # a row with no valid slot
+    return [("ring", ring), ("wrapped", wrapped), ("short-prefix", short),
+            ("holes", holes), ("row-empty", empty)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_splits", [1, 3, 8])
+def test_split_emulation_matches_jax_kernel_and_oracle(n_splits, dtype):
+    """The kernel's split-and-merge over the device-side extent, emulated,
+    against decode_attention_pallas (interpret mode) and decode_attention_ref,
+    row by row (the reference takes an (S,) mask); S is a multiple of block_k,
+    so the reference kernel pads nothing and agrees on an all-invalid row."""
+    B, H, Hkv, S, d = 3, 4, 2, 256, 32
+    q, k, v = _qkv(B, H, Hkv, S, d, dtype, seed=21)
+    rng = np.random.default_rng(22)
+    tol = TOL[dtype]
+    shared = np.random.default_rng(23).random(S) < 0.5
+    shared[7] = True
+    cases = [("shared", shared)] + _extent_masks(B, S, rng)
+    for name, valid in cases:
+        out = to_f32(_emulate_split_kernel(to_torch(q), to_torch(k), to_torch(v),
+                                           torch.from_numpy(valid), n_splits, softcap=30.0))
+        rows = valid if valid.ndim == 2 else np.broadcast_to(valid, (B, S))
+        for b in range(B):
+            args = (q[b:b + 1], k[b:b + 1], v[b:b + 1], jnp.asarray(rows[b]))
+            kern = jax_decode(*args, softcap=30.0, block_k=128, interpret=True)
+            ref = decode_attention_ref(*args, softcap=30.0)
+            for other in (kern, ref):
+                np.testing.assert_allclose(out[b:b + 1], to_f32(other), atol=tol, rtol=tol,
+                                           err_msg=f"mask {name}, row {b}")
+
+
+def test_split_emulation_with_empty_splits_at_model_shapes():
+    """More splits than tiles of a short extent (empty shares write m = -inf,
+    l = 0, acc = 0) at recurrentgemma's d=256, g=10 and qwen3's d=128, g=2,
+    against the oracle."""
+    rng = np.random.default_rng(31)
+    for (B, H, Hkv, S, d) in [(2, 10, 1, 160, 256), (2, 4, 2, 200, 128)]:
+        q, k, v = _qkv(B, H, Hkv, S, d, "float32", seed=B * S)
+        valid = np.zeros((B, S), bool)
+        valid[0, 10:50] = True
+        valid[1, :int(rng.integers(60, S))] = True
+        out = to_f32(_emulate_split_kernel(to_torch(q), to_torch(k), to_torch(v),
+                                           torch.from_numpy(valid), n_splits=9))
+        for b in range(B):
+            ref = decode_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                       jnp.asarray(valid[b]))
+            np.testing.assert_allclose(out[b:b + 1], to_f32(ref), atol=2e-5, rtol=2e-5)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -155,3 +298,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         decode_attention(q.bfloat16(), k, v, torch.ones(16, dtype=torch.bool))
     with pytest.raises(ValueError):
         decode_attention(q[:, :3], k, v, torch.ones(16, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_timing_yardstick_counts_valid_slots_and_exceeds_l2(shared):
+    """The bound chip_smoke.py and the sweep time against counts only the valid
+    K/V rows, for (S,) and (B, S) masks; a cold rotation moves at least 4 L2
+    sizes before an input comes round again."""
+    from repro_torch.kernels.sweep import (HBM_BYTES_PER_S, L2_SPAN, bound_ms, cold_copies,
+                                           decode_work)
+    B, H, Hkv, S, d = 2, 8, 2, 64, 32
+    q = torch.zeros(B, H, d)
+    k = torch.zeros(B, Hkv, S, d)
+    fill = torch.tensor([40, 40]) if shared else torch.tensor([10, 40])
+    valid = torch.arange(S)[None, :] < fill[:, None]
+    if shared:
+        valid = valid[0]
+    moved, ops = decode_work(q, k, valid)
+    n_valid = int(fill.sum())
+    assert moved == 2 * n_valid * Hkv * d * 4 + 2 * B * H * d * 4 + valid.numel()
+    assert ops == 4 * n_valid * H * d
+    assert bound_ms(moved, ops, torch.float32) == (moved / HBM_BYTES_PER_S * 1e3, "bytes")
+    copies = cold_copies(object, moved, 50 << 20)
+    assert len(copies) * moved >= L2_SPAN * (50 << 20)
+    assert len(set(map(id, copies))) == len(copies)

@@ -15,6 +15,7 @@ from repro.kernels.diag_recurrence import diag_recurrence as jax_kernel
 from repro.kernels.diag_recurrence import diag_recurrence_ref
 from repro.models import recurrence as jrec
 from repro_torch.kernels import diag_recurrence, diag_recurrence_plain
+from repro_torch.kernels.diag_recurrence.ops import U, plan_recurrence
 from repro_torch.models import recurrence as trec
 from tests._torch_parity import to_f32
 
@@ -101,6 +102,80 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     else:
         with pytest.raises(TypeError):
             diag_recurrence(a, b.double(), h0)
+
+
+def _chunked_emulation(a, b, h0, chunk):
+    """The chunked route's two passes in fp32 PyTorch, each product and sum
+    rounded on its own as the kernel rounds them: the summary folds each chunk
+    from zero into (product of a, end state); the apply pass composes the
+    carry-in from h0 over the earlier chunks in order, then runs the chunk."""
+    B, S, C = a.shape
+    starts = range(0, S, chunk)
+    prod, state = [], []
+    for r0 in starts:
+        p, h = torch.ones((B, C)), torch.zeros((B, C))
+        for t in range(r0, min(S, r0 + chunk)):
+            h = a[:, t] * h + b[:, t]
+            p = p * a[:, t]
+        prod.append(p)
+        state.append(h)
+    h_all = torch.empty_like(a)
+    for kc, r0 in enumerate(starts):
+        h = h0.clone()
+        for j in range(kc):
+            h = prod[j] * h + state[j]
+        for t in range(r0, min(S, r0 + chunk)):
+            h = a[:, t] * h + b[:, t]
+            h_all[:, t] = h
+    return h_all, h
+
+
+CHUNKED = [  # (B, S, C, chunk, a_low, a_high)
+    (2, 100, 64, 16, 0.5, 1.0),          # ragged last chunk
+    (1, 5, 32, 8, 0.5, 1.0),             # S shorter than one chunk
+    (3, 67, 130, 8, 0.5, 1.0),           # ragged channels, many chunks
+    (1, 96, 48, 24, 0.0, 1e-3),          # a near 0: products underflow to 0
+]
+
+
+@pytest.mark.parametrize("B,S,C,chunk,lo,hi", CHUNKED)
+def test_chunked_emulation_matches_jax(B, S, C, chunk, lo, hi):
+    rng = np.random.default_rng(B + S + C)
+    a = rng.uniform(lo, hi, (B, S, C)).astype(np.float32)
+    b = rng.standard_normal((B, S, C)).astype(np.float32)
+    h0 = rng.standard_normal((B, C)).astype(np.float32)          # h0 != 0
+    out_all, out_final = _chunked_emulation(*(torch.from_numpy(x) for x in (a, b, h0)),
+                                            chunk)
+    assert torch.isfinite(out_all).all() and torch.equal(out_final, out_all[:, -1])
+    ja, jb, jh = jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0)
+    refs = [diag_recurrence_ref(ja, jb, jh),
+            jax_kernel(ja, jb, jh, chunk=chunk, block_c=64, interpret=True),
+            jrec.chunked_diag_recurrence(ja, jb, jh, chunk=chunk)]
+    for ref_all, ref_final in refs:
+        _close(out_all, ref_all)
+        _close(out_final, ref_final)
+    if hi < 1e-2:                                                # products underflowed
+        p = torch.from_numpy(a[:, :chunk]).prod(1)
+        assert torch.equal(p, torch.zeros_like(p))
+
+
+@pytest.mark.parametrize("B,S,C,route", [
+    (1, 256, 131072, "sequential"),     # falcon-mamba-7b, one SSM chunk
+    (1, 512, 2560, "chunked"),          # recurrentgemma-2b RG-LRU prefill
+    (1, 2048, 2560, "chunked"),
+    (1, 1000, 2560, "chunked"),
+    (4, 64, 131072, "sequential"),
+    (1, 8, 2560, "sequential"),         # one load group: too short to cut
+])
+def test_plan_recurrence_routes(B, S, C, route):
+    p = plan_recurrence(B, S, C, n_sms=132)
+    assert p.route == route
+    if route == "chunked":
+        assert p.chunk % U == 0 and 2 <= p.n_chunks <= 64
+        assert (p.n_chunks - 1) * p.chunk < S <= p.n_chunks * p.chunk
+        assert B * C * p.n_chunks >= 132 * 128                  # fills the card
+    else:
+        assert (p.chunk, p.n_chunks) == (S, 1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -20,6 +20,8 @@ from repro_torch.kernels import (
     page_gather,
     page_gather_plain,
 )
+from repro_torch.kernels.decode_attention.ops import launch_splits
+from repro_torch.kernels.diag_recurrence.ops import plan_recurrence
 
 FLASH_ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap): tests/test_kernels.py:29-35
     (2, 4, 2, 256, 64, True, None, None),
@@ -200,6 +202,82 @@ def test_decode_attention_kernel_matches_plain(dtype):
             assert out.dtype == dtype and torch.isfinite(out.float()).all()
             np.testing.assert_allclose(out.float().cpu().numpy(),
                                        ref.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+def _extent_masks(B, S, rng):
+    """A short filled prefix in a long cache, a wrapped ring (valid at both
+    ends), one with whole invalid tiles inside its extent, and an all-invalid
+    row."""
+    short = np.zeros((B, S), bool)
+    for b in range(B):
+        short[b, :int(rng.integers(1, 40))] = True
+    wrapped = np.zeros((B, S), bool)
+    wrapped[:, :S // 5] = True
+    wrapped[:, S - S // 3:] = True
+    holes = rng.random((B, S)) < 0.4
+    holes[:, 64:320] = False
+    holes[:, 0] = True
+    empty = short.copy()
+    empty[0] = False
+    return [("short-prefix", short), ("wrapped", wrapped), ("holes", holes),
+            ("row-empty", empty)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_live_extent_and_any_split_count(dtype):
+    """The device-side extent on the masks it must get right, through the
+    planner's split count and through others (1, and more splits than the
+    extent has tiles: empty shares)."""
+    dev = _card()
+    rng = np.random.default_rng(12)
+    tol = TOL[dtype]
+    for (B, H, Hkv, S, d, cap) in [(4, 16, 8, 4096, 128, None), (4, 10, 1, 2048, 256, None),
+                                   (2, 4, 2, 1000, 64, 30.0)]:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(dtype).to(dev)
+                   for shape in ((B, H, d), (B, Hkv, S, d), (B, Hkv, S, d)))
+        for name, valid in _extent_masks(B, S, rng):
+            valid = torch.from_numpy(valid).to(dev)
+            ref = decode_attention_plain(q, k, v, valid, softcap=cap)
+            outs = [decode_attention(q, k, v, valid, softcap=cap)]
+            outs += [launch_splits(q, k, v, valid, n, softcap=cap) for n in (1, 5, 64)]
+            torch.cuda.synchronize()
+            for out in outs:
+                assert out.dtype == dtype and torch.isfinite(out.float()).all(), name
+                np.testing.assert_allclose(out.float().cpu().numpy(),
+                                           ref.float().cpu().numpy(), atol=tol, rtol=tol,
+                                           err_msg=name)
+
+
+@pytest.mark.gpu
+def test_diag_recurrence_routes_match_plain_and_are_counted():
+    """The planner's route at the model shapes: sequential bitwise equal to
+    the plain version, chunked within 1e-4 (a near 0 included: underflowing
+    products stay finite); each launch counted under its route."""
+    dev = _card()
+    rng = np.random.default_rng(14)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (B, S, C, lo) in [(1, 256, 131072, 0.5), (1, 512, 2560, 0.5), (1, 2048, 2560, 0.5),
+                          (1, 1000, 2560, 0.0), (2, 333, 1000, 0.5)]:
+        a = torch.from_numpy(rng.uniform(lo, 1.0, (B, S, C)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.standard_normal((B, S, C)).astype(np.float32)).to(dev)
+        h0 = torch.from_numpy(rng.standard_normal((B, C)).astype(np.float32)).to(dev)
+        route = plan_recurrence(B, S, C, n_sms).route
+        before = dict(diag_recurrence.launches_by_route)
+        h_all, h_final = diag_recurrence(a, b, h0)
+        torch.cuda.synchronize()
+        after = diag_recurrence.launches_by_route
+        assert after[route] == before[route] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        ref_all, ref_final = diag_recurrence_plain(a, b, h0)
+        assert torch.isfinite(h_all).all() and torch.equal(h_final, h_all[:, -1])
+        if route == "sequential":
+            assert torch.equal(h_all, ref_all) and torch.equal(h_final, ref_final)
+        np.testing.assert_allclose(h_all.cpu().numpy(), ref_all.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+    assert plan_recurrence(1, 2048, 2560, n_sms).route == "chunked"
+    assert plan_recurrence(1, 256, 131072, n_sms).route == "sequential"
 
 
 @pytest.mark.gpu
