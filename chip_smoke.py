@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives the port's HotSwap cold-start and serving paths on the card, for the
-dense and the recurrent families, and checks them:
+dense, recurrent, MoE, encoder-decoder and VLM families, and checks them:
 
 1. environment: card name and power limit, torch and CUDA versions;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a),
@@ -16,8 +16,11 @@ dense and the recurrent families, and checks them:
    rows shorter than one bulk item, 4 MiB + 16 B rows and an unaligned view
    of a pool; flash_attention and decode_attention within 2e-2 for bf16 and
    2e-5 for fp32, including all-masked rows, Sq != Sk, qwen3's d=128 prefill
-   and recurrentgemma's d=256, g=10 layers, and decode masks whose live
-   extent is a short prefix, wraps the ring or holds no valid slot;
+   and recurrentgemma's d=256, g=10 layers, h2o-danube3's d=120 (window 4096
+   at S=4608), whisper's non-causal encoder (S=1500) and cross prefill (64
+   queries over 1500 keys), granite's g=3 and internvl2's g=7, and decode
+   masks whose live extent is a short prefix, wraps the ring, holds no valid
+   slot or every slot (cross attention over 1500 keys);
    diag_recurrence within 1e-4 at the reference's sweep and at the RG-LRU
    shapes (S=512 and 2048, on the chunked route), and bitwise equal at the
    SSM-chunk shape (on the sequential route), h0 != 0);
@@ -33,7 +36,9 @@ dense and the recurrent families, and checks them:
    back-to-back calls queued behind a sleep kernel, so device time; median
    of the runs after warm-up) beside their bound, their plain version and
    one library call (flash_attention also at S=64 and at qwen3's fp32 d=128
-   prefill; decode_attention at qwen3's and recurrentgemma's decode,
+   prefill, h2o's d=120 prefill, whisper's encoder and cross prefill;
+   decode_attention at qwen3's, recurrentgemma's, granite's, internvl2's,
+   whisper's cross and h2o's decode,
    diag_recurrence at falcon-mamba's SSM chunk and recurrentgemma's RG-LRU
    prefill, each pair timed in turns, with a cold L2 as the main path finds
    it and with a warm one), page_gather's host time per call, and the
@@ -55,14 +60,36 @@ dense and the recurrent families, and checks them:
    prefill of 512 tokens + 8 decode steps against the full forward;
 9. serving on recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU,
    8 local attention of 10 heads over 1 kv head of 256; fp32), the same run
-   and checks as phase 7.
+   and checks as phase 7;
+10. serving on granite-moe-3b-a800m at full width and depth (32 layers, 40
+   experts padded to 48, top-8, 24 heads over 8 kv heads: g=3; fp32, 15.6
+   GB), the same run as phase 7. Its capacity factor of 1.25 drops
+   assignments in the forward and not in decode (no_drop), as in the
+   reference, so prefill + decode is held against the forward on a prompt
+   of 4 + 4 tokens, where no expert reaches capacity; the kernel path against
+   the plain path and batching against the 1-slot engine as in phase 7;
+11. moonshot-v1-16b-a3b at full width (64 experts, top-6, d=128) and 2 of its
+   48 layers, bf16: one forward; the kernel path against the plain path
+   within 0.125 of each logit before the first position the two route
+   otherwise, and at every position with the plain path replaying the kernel
+   path's expert picks; an fp32 twin within 1e-3 of max |logit| at the
+   positions routed alike in every layer (routing is recorded per layer);
+12. whisper-small (encoder-decoder: 12 + 12 layers over 1500 stub frames) and
+   internvl2-1b (24 layers, 256 stub patches prepended, g=7) at full width
+   and depth, fp32: restored under BULK bitwise equal, make_prefill_step on
+   generated frames / patches and 32 make_serve_step steps, held against the
+   full forward and the plain path within 1e-3 of max |logit|;
+13. h2o-danube3-4b at full width and depth (24 layers, head dim 120, window
+   4096, bf16, 7.9 GB): restored under BULK, a prefill of 4608 tokens that
+   wraps every layer's ring, 8 decode steps through it, held against the full
+   forward and the plain path within 0.125 of each logit.
 
 The launch counters are set to 0 just before each driven path (phases 4, 5,
-7, 8 and 9) and read just after; a kernel the path did not launch fails the
-run; falcon-mamba's path must run diag_recurrence on its sequential route
-and recurrentgemma's on its chunked route. Each phase frees its models
-before the next. Any failed check exits non-zero. The last line is the JSON
-device record.
+7-13) and read just after; a kernel the path did not launch fails the run;
+falcon-mamba's path must run diag_recurrence on its sequential route and
+recurrentgemma's on its chunked route. Each phase frees its models before
+the next. Any failed check exits non-zero. The last line is the JSON device
+record.
 """
 from __future__ import annotations
 
@@ -101,6 +128,14 @@ SERVE_LOGIT_TOL = 1e-3     # of max |logit|: fp32, products in another order
 FLASH_GRIFFIN = (1, 10, 1, 2048, 256, 2048)   # recurrentgemma local layer: B, H, Hkv, S, d, window
 FLASH_QWEN3 = (1, 16, 8, 2048, 128)           # qwen3-1.7b serving prefill (fp32): B, H, Hkv, S, d
 DECODE_GRIFFIN = (SERVE_SLOTS, 10, 1, 2048, 256)  # its decode: B, H, Hkv, C = window, d
+FLASH_H2O = (1, 32, 8, 4608, 120, 4096)       # h2o-danube3-4b prefill: B, H, Hkv, S, d, window
+FLASH_ENCODER = (1, 12, 12, 1500, 64)         # whisper-small encoder (non-causal)
+FLASH_CROSS = (1, 12, 12, 64, 1500, 64)       # whisper cross prefill: B, H, Hkv, Sq, Sk, d
+FRONTEND_BATCH, FRONTEND_PROMPT, FRONTEND_NEW = 2, 64, 32   # whisper / internvl2 serve steps
+DECODE_GRANITE = (SERVE_SLOTS, 24, 8, SERVE_SEQ, 64)        # granite-moe-3b decode: g = 3
+DECODE_INTERNVL = (FRONTEND_BATCH, 14, 2, 256 + FRONTEND_PROMPT + FRONTEND_NEW, 64)  # g = 7
+DECODE_CROSS = (FRONTEND_BATCH, 12, 12, 1500, 64)           # whisper cross, all keys valid
+DECODE_H2O = (1, 32, 8, 4096, 120)                          # h2o-danube3-4b ring: d = 120
 RECURRENCE_SWEEP = [(2, 100, 64), (1, 256, 32), (3, 17, 130), (1, 64, 2048)]  # test_kernels.py:68-70
 RECURRENCE_MAIN = {  # shape -> the route diag_recurrence's planner must take there
     (1, 2048, 2560): "chunked",          # recurrentgemma-2b RG-LRU prefill at S=2048
@@ -108,7 +143,10 @@ RECURRENCE_MAIN = {  # shape -> the route diag_recurrence's planner must take th
     (1, 256, 131072): "sequential",      # falcon-mamba-7b, one SSM chunk (256 x 8192 x 16)
 }
 RECURRENCE_TIMED = {"falcon": (1, 256, 131072), "recurrentgemma": (1, 2048, 2560)}
-DECODE_TIMED = {"qwen3": DECODE_MAIN, "recurrentgemma": DECODE_GRIFFIN}
+DECODE_TIMED = {  # path -> (its decode shape, the dtype the path runs it in)
+    "qwen3": (DECODE_MAIN, "float32"), "recurrentgemma": (DECODE_GRIFFIN, "float32"),
+    "granite": (DECODE_GRANITE, "float32"), "internvl2": (DECODE_INTERNVL, "float32"),
+    "whisper-cross": (DECODE_CROSS, "float32"), "h2o": (DECODE_H2O, "bfloat16")}
 RECURRENCE_TOL = 1e-4
 FALCON_ARCH = "falcon_mamba_7b"
 FALCON_SEQ = 2048
@@ -123,7 +161,18 @@ SERVING_KERNELS = {
     "qwen3_1_7b": ("page_gather", "flash_attention", "decode_attention"),
     "recurrentgemma_2b": ("page_gather", "flash_attention", "decode_attention",
                           "diag_recurrence"),
+    "granite_moe_3b_a800m": ("page_gather", "flash_attention", "decode_attention"),
 }
+# granite's prefill + decode against the forward: at capacity factor 1.25 the
+# forward drops assignments past capacity and decode (no_drop) does not, so
+# they agree only where no expert reaches capacity: S + K <= top_k (= 8)
+MOE_SHORT = (4, 4)
+MOONSHOT_LAYERS, MOONSHOT_SEQ = 2, 1024    # moonshot-v1-16b-a3b: full width, depth cut
+FLASH_MOONSHOT = (1, 16, 16, MOONSHOT_SEQ, 128)   # its forward (bf16; fp32 twin): B, H, Hkv, S, d
+H2O_ARCH, H2O_SEQ, H2O_DECODE = "h2o_danube3_4b", 4608, 8   # prefill crosses the window
+# of |logit|, bf16 logits against bf16 logits (tests/test_torch_models.py's
+# bound: 4 bf16 ulps at magnitude 4-8)
+BF16_LOGIT_BOUND = 0.125
 
 
 class SmokeFailure(RuntimeError):
@@ -318,7 +367,22 @@ def check_flash(device, errs: dict) -> None:
         cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
         cases.append((dtype, 2, 8, 2, 333, 333, 128, True, None, 50.0))
         cases.append((dtype, 1, 4, 2, 517, 517, 256, True, 200, None))
+        B, H, Hkv, S, d, window = FLASH_H2O                           # d = 120
+        cases.append((dtype, B, H, Hkv, S, S, d, True, window, None))
+        cases.append((dtype, 2, 8, 2, 300, 300, 120, True, 100, 30.0))
+        B, H, Hkv, S, d = FLASH_ENCODER
+        cases.append((dtype, B, H, Hkv, S, S, d, False, None, None))
+        B, H, Hkv, Sq, Sk, d = FLASH_CROSS
+        cases.append((dtype, B, H, Hkv, Sq, Sk, d, False, None, None))
+        cases.append((dtype, 1, 24, 8, 2048, 2048, 64, True, None, None))   # g = 3
+        cases.append((dtype, 1, 14, 2, 320, 320, 64, True, None, None))     # g = 7
+        B, H, Hkv, S, d = FLASH_MOONSHOT
+        cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
     worst = 0.0
+    # this slice's timed shapes: (path, dtype the path runs, B, H, Hkv, Sq, Sk, d)
+    timed = [("h2o", torch.bfloat16, *FLASH_H2O[:4], *FLASH_H2O[3:5]),
+             ("whisper", torch.float32, *FLASH_ENCODER[:4], *FLASH_ENCODER[3:]),
+             ("whisper", torch.float32, *FLASH_CROSS)]
     for (dtype, B, H, Hkv, Sq, Sk, d, causal, window, cap) in cases:
         q = torch.randn((B, H, Sq, d), generator=gen, device=device).to(dtype)
         k = torch.randn((B, Hkv, Sk, d), generator=gen, device=device).to(dtype)
@@ -337,6 +401,10 @@ def check_flash(device, errs: dict) -> None:
         if (B, H, Hkv, d) in [(1, 16, 16, 64), (1, 8, 4, 64)] and Sq in QWEN_SEQS \
                 and dtype == torch.bfloat16:
             worst = max(worst, err)
+        for path, dt, *shape in timed:
+            if (dtype, B, H, Hkv, Sq, Sk, d) == (dt, *shape):
+                key = f"flash_attention:{path}"
+                errs[key] = max(errs.get(key, 0.0), err)
         log(f"[3] flash_attention {label}: max |err| {err:.3e} (tol {tol})")
     errs["flash_attention"] = worst
 
@@ -344,8 +412,9 @@ def check_flash(device, errs: dict) -> None:
 def _decode_masks(gen, B, S, device):
     """An (S,) random mask, a (B, S) ring mask with a window (rows at other
     depths, some wrapped), the same with its last row all invalid, a short
-    filled prefix in the long cache (a live extent far below S), and a
-    wrapped ring valid at both ends of every row."""
+    filled prefix in the long cache (a live extent far below S), a wrapped
+    ring valid at both ends of every row, and every slot valid (cross
+    attention)."""
     import torch
     shared = torch.rand((S,), generator=gen, device=device) < 0.7
     shared[0] = True
@@ -362,7 +431,8 @@ def _decode_masks(gen, B, S, device):
     short = slots < torch.randint(1, 48, (B, 1), generator=gen, device=device)
     wrapped = ((slots < S // 5) | (slots >= S - S // 3)).expand(B, S).contiguous()
     return [("shared", shared), ("ring", ring), ("row-empty", empty),
-            ("short-prefix", short), ("wrapped", wrapped)]
+            ("short-prefix", short), ("wrapped", wrapped),
+            ("all-valid", torch.ones((S,), dtype=torch.bool, device=device))]
 
 
 def check_decode(device, errs: dict) -> None:
@@ -371,7 +441,8 @@ def check_decode(device, errs: dict) -> None:
                                                       decode_attention_plain)
     gen = torch.Generator(device=device).manual_seed(17)
     worst: dict = {}
-    shapes = DECODE_SWEEP + [(*DECODE_MAIN, None), (*DECODE_GRIFFIN, None)]
+    shapes = DECODE_SWEEP + [(*shape, None) for shape, _ in DECODE_TIMED.values()]
+    shapes.append((2, 21, 3, 300, 120, 50.0))                       # d = 120, g = 7
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
@@ -391,8 +462,8 @@ def check_decode(device, errs: dict) -> None:
                          f"softcap={cap} mask={mname}")
                 expect(ok, f"decode_attention {label}: max |err| {err} over "
                        f"tolerance {tol}")
-                for name, shape in DECODE_TIMED.items():
-                    if (B, H, Hkv, S, d) == shape and dtype == torch.float32:
+                for name, (shape, dt) in DECODE_TIMED.items():
+                    if (B, H, Hkv, S, d) == shape and str(dtype) == f"torch.{dt}":
                         worst[name] = max(worst.get(name, 0.0), err)
                 n += 1
                 log(f"[3] decode_attention {label}: max |err| {err:.3e} (tol {tol})")
@@ -802,6 +873,7 @@ def phase_serving(device, arch: str, tag: str) -> dict:
     from repro_torch.models.attention import KVCache, decode_valid
     from repro_torch.models.config import LOCAL_ATTN
     from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.moe import expert_capacity
     from repro_torch.models.transformer import decode_step, forward, init_params
     from repro_torch.runtime import ReplicaSet
     from repro_torch.serving import ServeConfig, ServingEngine
@@ -897,11 +969,12 @@ def phase_serving(device, arch: str, tag: str) -> dict:
     log(f"[{tag}] launches during the serving path: {counts}")
     for name, n in counts.items():
         expect(n > 0, f"{name} was not launched by the serving path")
-    expect_route(tag, "serving path (fp32)", "cuda_core")
+    flash_routes = expect_route(tag, "serving path (fp32)", "cuda_core")
     routes = None
     if "diag_recurrence" in kernels:     # every RG-LRU prefill is B=1: too few channels
         routes = expect_route(tag, "serving path (fp32)", "chunked", kernel="diag_recurrence")
-    out = {"counts": counts, "diag_routes": routes, "ttft_ms": statistics.mean(ttft) * 1e3,
+    out = {"counts": counts, "diag_routes": routes, "flash_routes": flash_routes,
+           "ttft_ms": statistics.mean(ttft) * 1e3,
            "decode_step_ms": statistics.median(decode_s) * 1e3,
            "tokens_per_s": total_tokens / serve_s, "recover_warmswap_s": warm_s,
            "recover_baseline_s": cold_s}
@@ -913,7 +986,11 @@ def phase_serving(device, arch: str, tag: str) -> dict:
 
     # ---- checks, not counted
     params = rs.replicas[names[1]].params
-    S, K = SERVE_PROMPTS[0], 8
+    moe = cfg.n_experts > 0
+    S, K = MOE_SHORT if moe else (SERVE_PROMPTS[0], 8)
+    if moe:                               # no expert reaches capacity: no drop
+        expect(expert_capacity(cfg, S + K) == S + K and expert_capacity(cfg, S) == S,
+               f"{cfg.name}: a prompt of {S} + {K} tokens can fill an expert")
     seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S + K)), device=device)
     full = forward(params, seq, cfg)[0]
     _, st = forward(params, seq[:, :S], cfg, make_state=True, state_len=SERVE_SEQ)
@@ -938,22 +1015,24 @@ def phase_serving(device, arch: str, tag: str) -> dict:
     d = float(np.abs(kern - plain).max())
     tol = SERVE_LOGIT_TOL * float(np.abs(plain).max())
     agree = float((kern.argmax(-1) == plain.argmax(-1)).mean())
-    log(f"[{tag}] request 0 (prompt {len(prompts[0])}): kernel vs plain path max |d logit| "
-        f"{d:.3e} (tolerance {tol:.3e}), argmax agreement {agree:.4f}")
+    log(f"[{tag}] request 0 (prompt {len(prompts[0])}): kernel vs plain path max "
+        f"|d logit| {d:.3e} (tolerance {tol:.3e}), argmax agreement {agree:.4f}")
     expect(d <= tol, f"kernel path differs from plain path by {d} > {tol}")
 
     single = ServingEngine(cfg, params, ServeConfig(
         max_slots=1, max_seq_len=SERVE_SEQ, max_new_tokens=SERVE_NEW, keep_logits=True))
     rids = [single.submit(p) for p in prompts]
     single.run_until_done()
-    worst, compared, diverged = 0.0, 0, 0
+    worst, compared, parts = 0.0, 0, []
     for i, rid in enumerate(rids):
         w, n, div = _agree_until_divergence(single.completed[rid], served[i],
                                             SERVE_LOGIT_TOL)
-        worst, compared, diverged = max(worst, w), compared + n, diverged + div
+        worst, compared = max(worst, w), compared + n
+        if div:
+            parts.append((i, n - 1))
     log(f"[{tag}] continuous batching vs 1-slot engine: {compared} steps compared, max "
-        f"|d logit| {worst:.3e}; {diverged} of {SERVE_REQUESTS} requests took another "
-        f"token at a near tie")
+        f"|d logit| {worst:.3e}; {len(parts)} of {SERVE_REQUESTS} requests took another "
+        f"token at a near tie (request, step where the tokens part: {parts})")
     del single
 
     profile_decode(rs.replicas[names[1]], device, tag)
@@ -1147,19 +1226,414 @@ def phase_falcon(device, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------------
+# 11. moonshot-v1-16b-a3b, full width, depth cut
+# ---------------------------------------------------------------------------------
+
+class RouteRecorder:
+    """Within the block, records every MoE routing decision (the gates and
+    the top-k experts ``models.moe.top_k`` picks), in call order. Given
+    ``replay``, another recorder's calls, each call takes the experts that
+    call picked instead, weighted by its own gates."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._top_k = [], moe.top_k
+
+        def top_k(gates, k):
+            if self.replay is None:
+                w, i = self._top_k(gates, k)
+            else:
+                i = self.replay[len(self.calls)][1]
+                w = gates.gather(-1, i)
+            self.calls.append((gates.detach().clone(), i))
+            return w, i
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k = self._top_k
+
+
+def _routing_compare(kern_routes, plain_routes, k_logits, p_logits, n_layers: int):
+    """Positions routed alike on both paths in every layer, and the logits'
+    differences there, elsewhere, and before the first position routed
+    otherwise (whose logits no routing difference can reach: attention is
+    causal, and an expert ranks its tokens in order for the capacity cut)."""
+    import torch
+    expect(len(kern_routes.calls) == len(plain_routes.calls) == n_layers,
+           "one routing decision per layer")
+    alike = torch.ones(k_logits.shape[1], dtype=torch.bool, device=k_logits.device)
+    dgate = 0.0
+    for (gk, ik), (gp, ip) in zip(kern_routes.calls, plain_routes.calls):
+        alike &= (ik[0].sort(dim=-1).values == ip[0].sort(dim=-1).values).all(dim=-1)
+        dgate = max(dgate, float((gk - gp).abs().max()))
+    diff = (k_logits[0] - p_logits[0]).abs().amax(dim=-1)
+    moved = (~alike).nonzero().flatten().tolist()
+    first = moved[0] if moved else len(alike)
+    return {"alike": int(alike.sum()),
+            "dlogit_alike": float(diff[alike].max()) if bool(alike.any()) else float("nan"),
+            "moved": len(moved), "first_moved": moved[:1],
+            "dlogit_moved": float(diff[~alike].max()) if moved else 0.0,
+            "dlogit_before": float(diff[:first].max()) if first else float("nan"),
+            "dgate": dgate, "max_logit": float(p_logits.abs().max())}
+
+
+def phase_moonshot(device, tag: str = "11") -> dict:
+    """One bf16 forward of moonshot-v1-16b-a3b at full width (64 experts,
+    top-6, d=128, g=1) and MOONSHOT_LAYERS layers through the kernels: the
+    driven path. In bf16 the tensor-core route rounds P to bf16 as the JAX
+    model does and the plain version does not, which moves the router's
+    inputs by bf16 ulps and flips top-6 picks at near ties; attention and the
+    experts' capacity ranks carry a flip to every later position. So the
+    bf16 pair is held to BF16_LOGIT_BOUND before the first position routed
+    otherwise, and over every position with the plain path replaying the
+    kernel path's expert picks; an fp32 twin (same width and depth) routes
+    alike and is held to SERVE_LOGIT_TOL of max |logit| where it does."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.transformer import forward, init_params
+
+    cfg = dataclasses.replace(get_config("moonshot_v1_16b_a3b"), n_layers=MOONSHOT_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg, torch.bfloat16)
+    sync(device)
+    n_params = sum(leaf.numel() for _, leaf in flatten_with_keys(params))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} of 48 layers, d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} {cfg.n_experts} experts "
+        f"top-{cfg.top_k} d_ff {cfg.d_ff}, bf16: {n_params} parameters "
+        f"({n_params * 2} B), built in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOONSHOT_SEQ), device=device,
+                           generator=torch.Generator(device=device).manual_seed(27))
+    reset_counts([flash_attention])
+    with RouteRecorder() as kern_routes:
+        k_logits = forward(params, tokens, cfg)
+    sync(device)
+    counts = {"flash_attention": flash_attention.launches}
+    log(f"[{tag}] launches during the moonshot forward: {counts}")
+    expect(counts["flash_attention"] > 0, "flash_attention was not launched by moonshot")
+    expect_route(tag, "moonshot forward", "tc_bf16")
+    expect(k_logits.shape[:2] == (1, MOONSHOT_SEQ) and bool(torch.isfinite(k_logits).all()),
+           f"moonshot logits not finite or of shape {tuple(k_logits.shape)}")
+
+    # ---- checks, not counted
+    out = {"counts": counts}
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.float32:
+            del params, k_logits
+            params = init_params(torch.Generator(device=device).manual_seed(0), cfg, dtype)
+            with RouteRecorder() as kern_routes:
+                k_logits = forward(params, tokens, cfg)
+        with RouteRecorder() as plain_routes:
+            p_logits = forward(params, tokens, cfg, attention_fn=flash_attention_plain)
+        r = _routing_compare(kern_routes, plain_routes, k_logits, p_logits, cfg.n_layers)
+        name = str(dtype).split(".")[1]
+        log(f"[{tag}] {name} S={MOONSHOT_SEQ} forward, kernel vs plain path: {r['alike']} "
+            f"of {MOONSHOT_SEQ} positions routed alike in every layer, max |d logit| there "
+            f"{r['dlogit_alike']:.4e} (max |logit| {r['max_logit']:.4e}); {r['moved']} "
+            f"routed otherwise (first at {r['first_moved']}), max |d logit| there "
+            f"{r['dlogit_moved']:.4e}, before it {r['dlogit_before']:.4e}; max |d gate| "
+            f"{r['dgate']:.3e}")
+        out[name] = r
+        del p_logits
+        if dtype == torch.bfloat16:
+            expect(not r["first_moved"] or r["first_moved"][0] > 0,
+                   "moonshot bf16: the paths route position 0 otherwise")
+            expect(r["dlogit_before"] <= BF16_LOGIT_BOUND,
+                   f"moonshot bf16 kernel path differs from the plain path by "
+                   f"{r['dlogit_before']} > {BF16_LOGIT_BOUND} before the first position "
+                   f"routed otherwise")
+            with RouteRecorder(replay=kern_routes.calls):
+                p_logits = forward(params, tokens, cfg, attention_fn=flash_attention_plain)
+            d = (k_logits[0] - p_logits[0]).abs().amax(dim=-1)
+            r["dlogit_replayed"] = float(d.max())
+            agree = float((k_logits[0].argmax(-1) == p_logits[0].argmax(-1)).float().mean())
+            log(f"[{tag}] bfloat16 S={MOONSHOT_SEQ} forward, plain path replaying the "
+                f"kernel path's expert picks: max |d logit| {r['dlogit_replayed']:.4e} over "
+                f"all positions (at position {int(d.argmax())}; bound {BF16_LOGIT_BOUND}), "
+                f"argmax agreement {agree:.4f}")
+            expect(r["dlogit_replayed"] <= BF16_LOGIT_BOUND,
+                   f"moonshot bf16 kernel path differs from the plain path replaying its "
+                   f"routing by {r['dlogit_replayed']} > {BF16_LOGIT_BOUND}")
+            del p_logits
+    tol = SERVE_LOGIT_TOL * r["max_logit"]
+    expect(r["alike"] > 0 and r["dlogit_alike"] <= tol,
+           f"moonshot fp32 kernel path differs from the plain path by {r['dlogit_alike']} "
+           f"> {tol} where the routing agreed")
+    del params, k_logits
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# 12-13. whisper-small, internvl2-1b and h2o-danube3-4b from the pool
+# ---------------------------------------------------------------------------------
+
+def _pool_image(device, cfg, dtype, tag: str):
+    """``cfg``'s random image (seed 0) in a new pool, restored under BULK:
+    (manager, restored params). Every restored leaf is bitwise the built one."""
+    import torch
+    from repro_torch.core import DependencyManager, RestorePolicy
+    from repro_torch.core.pages import byte_view
+    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.transformer import init_params
+    keep: dict = {}
+
+    def builder():
+        keep["params"] = init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                     dtype)
+        return keep["params"]
+
+    manager = DependencyManager(device=device)
+    t0 = time.perf_counter()
+    manager.register_image(cfg.name, cfg.name, builder)
+    sync(device)
+    img = manager._ensure_live(cfg.name)
+    table = img.metadata.page_table
+    ref_leaves = dict(flatten_with_keys(keep.pop("params")))
+    n_params = sum(leaf.numel() for leaf in ref_leaves.values())
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers {cfg.attn_pattern} d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} -> {padded_vocab(cfg)}, {str(dtype).split('.')[1]}: {n_params} "
+        f"parameters, payload {table.nbytes_payload} B in {table.n_pages} pages, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    r = manager.request_migration(cfg.name, RestorePolicy.BULK)
+    r.fault(r.metadata.page_table.order[0])
+    params = r.as_pytree()
+    sync(device)
+    dt = time.perf_counter() - t0
+    manager.release(cfg.name)
+    got = dict(flatten_with_keys(params))
+    expect(got.keys() == ref_leaves.keys(), f"{cfg.name}: restored leaf keys differ")
+    for key, leaf in got.items():
+        ref = ref_leaves[key]
+        expect(leaf.dtype == ref.dtype and leaf.shape == ref.shape
+               and torch.equal(byte_view(leaf), byte_view(ref)),
+               f"{cfg.name}: restored leaf {key} is not bitwise equal")
+    log(f"[{tag}] bulk: {len(got)} leaves restored bitwise equal in {dt * 1e3:.1f} ms "
+        f"({r.stats})")
+    return manager, params
+
+
+def phase_frontend(device, arch: str, tag: str = "12") -> dict:
+    """whisper-small or internvl2-1b at full width and depth (fp32) from the
+    pool: make_prefill_step on generated frames / patches, then FRONTEND_NEW
+    make_serve_step steps, as the reference serves them (its engine admits
+    token prompts only). Checks: prefill + decode against the full forward,
+    and the kernel path against the plain path, teacher-forced on the served
+    tokens, within SERVE_LOGIT_TOL of max |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention, page_gather
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.api import make_prefill_step, make_serve_step
+    from repro_torch.models.attention import decode_valid
+    from repro_torch.models.transformer import decode_step, forward
+
+    cfg = get_config(arch)
+    kernels = {"page_gather": page_gather, "flash_attention": flash_attention,
+               "decode_attention": decode_attention}
+    B, S, K = FRONTEND_BATCH, FRONTEND_PROMPT, FRONTEND_NEW
+    audio = cfg.frontend == "audio_frames"
+    F = 0 if audio else cfg.n_frontend_tokens
+    rng = np.random.default_rng(31)
+    key, shape = (("frames", (B, cfg.n_enc_positions, cfg.d_model)) if audio
+                  else ("patches", (B, F, cfg.d_model)))
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                       device=device),
+             key: torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                  device=device)}
+    state_len = F + S + K
+
+    # ---- the main path, counted: restore, prefill, serve steps
+    reset_counts(kernels.values())
+    manager, params = _pool_image(device, cfg, torch.float32, tag)
+    t0 = time.perf_counter()
+    tok, st = make_prefill_step(cfg, state_len=state_len)(params, batch)
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    served = [tok]
+    serve = make_serve_step(cfg)
+    t0 = time.perf_counter()
+    for _ in range(K):
+        tok, st = serve(params, st, served[-1][:, None])
+        served.append(tok)
+    sync(device)
+    step_ms = (time.perf_counter() - t0) / K * 1e3
+    served = torch.stack(served, dim=1).long()                       # (B, K + 1)
+    counts = {k: v.launches for k, v in kernels.items()}
+    prompt = (f"{S} tokens over {cfg.n_enc_positions} frames" if audio
+              else f"{F} patches + {S} tokens")
+    log(f"[{tag}] {cfg.name}: prefill of {B} x ({prompt}) {prefill_s * 1e3:.1f} ms, {K} "
+        f"serve steps {step_ms:.3f} ms each; launches {counts}")
+    for name, n in counts.items():
+        expect(n > 0, f"{name} was not launched by the {cfg.name} path")
+    flash_routes = expect_route(tag, f"{cfg.name} path (fp32)", "cuda_core")
+
+    # ---- checks, not counted
+    fe = batch[key]
+
+    def teacher_forced(attention_fn, decode_fn):
+        logits, s = forward(params, batch["tokens"], cfg, frontend_embeds=fe,
+                            make_state=True, state_len=state_len, logits_slice=1,
+                            attention_fn=attention_fn)
+        rows = [logits[:, -1]]
+        for i in range(K):
+            lg, s = decode_step(params, s, served[:, i:i + 1], cfg, decode_fn=decode_fn)
+            rows.append(lg)
+        return torch.stack(rows, dim=1)[..., :cfg.vocab_size]        # (B, K + 1, V)
+
+    kern = teacher_forced(flash_attention, decode_attention)
+    expect(torch.equal(kern.argmax(-1), served), "the served tokens are not the argmax "
+           "of the same path's logits")
+    full = forward(params, torch.cat([batch["tokens"], served[:, :-1]], dim=1), cfg,
+                   frontend_embeds=fe)[:, F + S - 1:, :cfg.vocab_size]
+    plain = teacher_forced(flash_attention_plain, decode_attention_plain)
+    for what, a, ref in (("prefill + decode vs full forward", kern, full),
+                         ("kernel vs plain path", kern, plain)):
+        d = float((a - ref).abs().max())
+        tol = SERVE_LOGIT_TOL * float(ref.abs().max())
+        agree = float((a.argmax(-1) == ref.argmax(-1)).float().mean())
+        log(f"[{tag}] {cfg.name} {what}, {K + 1} positions x {B}: max |d logit| "
+            f"{d:.3e} (tolerance {tol:.3e}), argmax agreement {agree:.4f}")
+        expect(d <= tol, f"{cfg.name} {what}: {d} > {tol}")
+    if audio:      # the first layer's cross keys, every one valid
+        inputs = (st["cross"]["k"][0].clone(), st["cross"]["v"][0].clone(),
+                  torch.ones((cfg.n_enc_positions,), dtype=torch.bool, device=device))
+    else:          # the first layer's self-attention cache
+        cache = st["unit"][0]
+        inputs = (cache.k[0].clone(), cache.v[0].clone(),
+                  decode_valid(cache.k_pos[0], st["pos"], None))
+    del params, st, kern, full, plain, manager
+    return {"counts": counts, "flash_routes": flash_routes, "prefill_ms": prefill_s * 1e3,
+            "serve_step_ms": step_ms, "decode_inputs": inputs}
+
+
+def phase_h2o(device, tag: str = "13") -> dict:
+    """h2o-danube3-4b at full width and depth (bf16, head dim 120, window
+    4096 on every layer) from the pool: a prefill of H2O_SEQ tokens, which
+    wraps each layer's 4096-slot ring, then H2O_DECODE decode steps through
+    the wrapped ring. Checks: decode against the full forward, and the kernel
+    path against the plain path (teacher-forced), within BF16_LOGIT_BOUND."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention, page_gather
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.attention import decode_valid
+    from repro_torch.models.transformer import decode_step, forward
+
+    cfg = get_config(H2O_ARCH)
+    kernels = {"page_gather": page_gather, "flash_attention": flash_attention,
+               "decode_attention": decode_attention}
+    S, K = H2O_SEQ, H2O_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (1, S + K), device=device,
+                           generator=torch.Generator(device=device).manual_seed(29))
+
+    def run(params, attention_fn, decode_fn):
+        """Logits (K + 1, V) of the prefill's last position and the decode
+        steps, and the final state."""
+        logits, st = forward(params, tokens[:, :S], cfg, make_state=True,
+                             state_len=S + K, logits_slice=1, attention_fn=attention_fn)
+        rows = [logits[0, -1]]
+        for i in range(K):
+            lg, st = decode_step(params, st, tokens[:, S + i:S + i + 1], cfg,
+                                 decode_fn=decode_fn)
+            rows.append(lg[0])
+        return torch.stack(rows)[:, :cfg.vocab_size], st
+
+    # ---- the main path, counted
+    reset_counts(kernels.values())
+    manager, params = _pool_image(device, cfg, torch.bfloat16, tag)
+    t0 = time.perf_counter()
+    kern, st = run(params, flash_attention, decode_attention)
+    sync(device)
+    run_s = time.perf_counter() - t0
+    counts = {k: v.launches for k, v in kernels.items()}
+    cache = st["unit"][0]
+    C = cache.k.shape[3]
+    log(f"[{tag}] {cfg.name}: prefill {S} + {K} decode steps in {run_s:.3f} s; each "
+        f"layer's ring holds {C} slots, positions {int(cache.k_pos[0].min())}-"
+        f"{int(cache.k_pos[0].max())}; launches {counts}")
+    for name, n in counts.items():
+        expect(n > 0, f"{name} was not launched by the {cfg.name} path")
+    expect(C == cfg.window < S, f"the ring of {C} slots did not wrap")
+    flash_routes = expect_route(tag, f"{cfg.name} path (bf16)", "tc_bf16")
+    expect(bool(torch.isfinite(kern).all()), "h2o logits are not finite")
+
+    # ---- checks, not counted
+    full = forward(params, tokens, cfg)[0, S - 1:, :cfg.vocab_size]
+    plain, _ = run(params, flash_attention_plain, decode_attention_plain)
+    for what, ref in (("prefill + decode vs full forward", full),
+                      ("kernel vs plain path", plain)):
+        d = float((kern - ref).abs().max())
+        agree = float((kern.argmax(-1) == ref.argmax(-1)).float().mean())
+        log(f"[{tag}] {cfg.name} {what}, {K + 1} positions: max |d logit| {d:.4e} "
+            f"(max |logit| {float(ref.abs().max()):.4e}, bound {BF16_LOGIT_BOUND}), "
+            f"argmax agreement {agree:.4f}")
+        expect(d <= BF16_LOGIT_BOUND, f"{cfg.name} {what}: {d} > {BF16_LOGIT_BOUND}")
+    inputs = (cache.k[0].clone(), cache.v[0].clone(),
+              decode_valid(cache.k_pos[0], st["pos"], cfg.window))
+    del params, st, full, plain, manager
+    return {"counts": counts, "flash_routes": flash_routes, "prefill_decode_s": run_s,
+            "decode_inputs": inputs}
+
+
+# ---------------------------------------------------------------------------------
 # 6. kernel times
 # ---------------------------------------------------------------------------------
+
+def _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, label: str):
+    """Times flash_attention at one shape beside its plain version and SDPA
+    (given the explicit mask where a window cuts keys), with the bound from
+    the unmasked (q, k) pairs. Returns the row's numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.sweep import bound_ms, cuda_ms
+    q = torch.randn((B, H, Sq, d), generator=gen, device=device).to(dtype)
+    k = torch.randn((B, Hkv, Sk, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((B, Hkv, Sk, d), generator=gen, device=device).to(dtype)
+    opts = dict(causal=causal, window=window)
+    mask = None
+    if window is not None and window < Sk:
+        qi = torch.arange(Sq, device=device)[:, None]
+        ki = torch.arange(Sk, device=device)[None, :]
+        mask = (ki <= qi) & (qi - ki < window) if causal else (qi - ki < window)
+    t_k = cuda_ms(lambda: flash_attention(q, k, v, **opts))
+    t_p = cuda_ms(lambda: flash_attention_plain(q, k, v, **opts))
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True))
+    pairs = sum(min(i + 1 if causal else Sk, window or Sk) for i in range(Sq))
+    ops = 4 * B * H * d * pairs
+    moved = q.element_size() * (2 * B * H * Sq * d + 2 * B * Hkv * Sk * d)
+    bound, by = bound_ms(moved, ops, dtype)
+    log(f"[6] flash_attention {label} {str(dtype).split('.')[1]} B{B} H{H}/{Hkv} Sq{Sq} "
+        f"Sk{Sk} d{d} causal={causal} window={window}: kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms ({by}), "
+        f"{ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+    return {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+            "library_ms": t_l}
+
 
 def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
                 path_routes: dict, decode_inputs: dict) -> list:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import (decode_attention, diag_recurrence, flash_attention,
-                                     page_gather)
+    from repro_torch.kernels import decode_attention, diag_recurrence, page_gather
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.diag_recurrence import diag_recurrence_plain
     from repro_torch.kernels.diag_recurrence.ops import plan_recurrence
-    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.page_gather import page_gather_plain
     from repro_torch.kernels.sweep import (HBM_BYTES_PER_S, bound_ms, cold_copies,
                                            cuda_ms, decode_work, l2_bytes,
@@ -1204,68 +1678,50 @@ def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
                  "library_ms": t_l})
 
     gen = torch.Generator(device=device).manual_seed(13)
-    flash_rows = {}
+    flash = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:93"}
     for (B, H, Hkv, S, d) in FLASH_MAIN:
-        q = torch.randn((B, H, S, d), generator=gen, device=device).bfloat16()
-        k = torch.randn((B, Hkv, S, d), generator=gen, device=device).bfloat16()
-        v = torch.randn((B, Hkv, S, d), generator=gen, device=device).bfloat16()
-        t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-        t_p = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
-        pairs = S * (S + 1) // 2                      # unmasked causal (q, k) pairs
-        ops = 4 * B * H * d * pairs
-        moved = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
-        bound, by = bound_ms(moved, ops, torch.bfloat16)
-        log(f"[6] flash_attention bf16 B{B} H{H}/{Hkv} S{S} d{d} causal: kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms "
-            f"({by}), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
-        flash_rows[(H, Hkv, S)] = {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
-            "shape": f"qwen1.5 prefill bf16 B{B} H{H}/{Hkv} S{S} d{d} causal",
-            "launches": launches["flash_attention"],
-            "max_abs_err": errs["flash_attention"], "ms": t_k, "plain_ms": t_p,
-            "bound_ms": bound, "bound_by": by, "library_ms": t_l}
-    rows.append(flash_rows[(16, 16, 2048)])          # qwen prefill at S=2048
-
-    # flash_attention at recurrentgemma-2b's local layer (fp32, as it serves)
+        row = _flash_row(gen, device, torch.bfloat16, B, H, Hkv, S, S, d, True, None,
+                         "qwen1.5 prefill")
+        if (H, Hkv, S) == (16, 16, 2048):                # the row: qwen prefill at S=2048
+            rows.append({**flash, "shape": f"qwen1.5 prefill bf16 B{B} H{H}/{Hkv} S{S} "
+                                           f"d{d} causal",
+                         "launches": launches["flash_attention"],
+                         "max_abs_err": errs["flash_attention"], **row})
+    # the fp32 CUDA-core route at recurrentgemma-2b's local layer and qwen3-1.7b's
+    # serving prefill
     B, H, Hkv, S, d, window = FLASH_GRIFFIN
-    q = torch.randn((B, H, S, d), generator=gen, device=device)
-    k = torch.randn((B, Hkv, S, d), generator=gen, device=device)
-    v = torch.randn((B, Hkv, S, d), generator=gen, device=device)
-    t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
-    t_p = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, window=window))
-    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))   # window 2048 = S: causal only
-    pairs = sum(min(i + 1, window) for i in range(S))
-    ops = 4 * B * H * d * pairs
-    moved = 4 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
-    bound, by = bound_ms(moved, ops, torch.float32)
-    log(f"[6] flash_attention fp32 B{B} H{H}/{Hkv} S{S} d{d} window {window}: kernel "
-        f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms "
-        f"({by}, fp32 CUDA-core peak), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
-
-    # flash_attention at qwen3-1.7b's serving prefill (fp32, the CUDA-core route)
+    _flash_row(gen, device, torch.float32, B, H, Hkv, S, S, d, True, window,
+               "recurrentgemma-2b local layer")
     B, H, Hkv, S, d = FLASH_QWEN3
-    q = torch.randn((B, H, S, d), generator=gen, device=device)
-    k = torch.randn((B, Hkv, S, d), generator=gen, device=device)
-    v = torch.randn((B, Hkv, S, d), generator=gen, device=device)
-    t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    t_p = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                         enable_gqa=True))
-    ops = 4 * B * H * d * (S * (S + 1) // 2)
-    moved = 4 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
-    bound, by = bound_ms(moved, ops, torch.float32)
-    log(f"[6] flash_attention fp32 B{B} H{H}/{Hkv} S{S} d{d} causal: kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bound:.5f} ms ({by}, fp32 "
-        f"CUDA-core peak), {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+    _flash_row(gen, device, torch.float32, B, H, Hkv, S, S, d, True, None,
+               "qwen3-1.7b prefill")
 
-    # decode_attention at qwen3-1.7b's and recurrentgemma-2b's decode, on the
-    # first attention layer's cache and mask as each serving run left them,
-    # timed in turns (qwen3, recurrentgemma, qwen3, recurrentgemma). On the
+    # flash_attention at this slice's shapes: h2o-danube3's d=120 windowed
+    # prefill (bf16), whisper's encoder and its cross prefill (fp32); each
+    # row's launches are its path's
+    def flash_row(dtype, shape, causal, window, path, what):
+        B, H, Hkv, Sq, Sk, d = shape
+        row = _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, what)
+        rows.append({**flash,
+                     "shape": f"{what} {str(dtype).split('.')[1]} B{B} H{H}/{Hkv} Sq{Sq} "
+                              f"Sk{Sk} d{d} (launches: the {path} path's)",
+                     "launches": path_counts[path]["flash_attention"],
+                     "max_abs_err": errs[f"flash_attention:{path}"], **row})
+
+    B, H, Hkv, S, d, window = FLASH_H2O
+    flash_row(torch.bfloat16, (B, H, Hkv, S, S, d), True, window, "h2o",
+              "h2o-danube3 prefill, window 4096")
+    B, H, Hkv, S, d = FLASH_ENCODER
+    flash_row(torch.float32, (B, H, Hkv, S, S, d), False, None, "whisper",
+              "whisper encoder, non-causal")
+    flash_row(torch.float32, FLASH_CROSS, False, None, "whisper", "whisper cross prefill")
+
+    # decode_attention at each path's decode (qwen3-1.7b, recurrentgemma-2b,
+    # granite-moe's g=3, internvl2's g=7, whisper's cross attention over 1500
+    # keys, h2o-danube3's d=120 ring), on the first attention layer's cache
+    # and mask as each run left them, timed in turns. On the
     # main path each call reads its layer's cache after the other layers'
     # weights, so L2 is cold: `ms` rotates over copies of the cache that move
     # 4 L2 sizes between reuses; `warm_ms` calls one cache back to back. The
@@ -1284,7 +1740,7 @@ def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
         return [lambda c=c: fn(*c) for c in copies]
 
     cases = {name: decode_case(decode_inputs[name], shape[1])
-             for name, shape in DECODE_TIMED.items()}
+             for name, (shape, _) in DECODE_TIMED.items()}
     t_dec = {name: {"warm": [], "cold": []} for name in cases}
     for _ in range(2):
         for name, (q, kc, vc, valid, _, _, copies) in cases.items():
@@ -1296,17 +1752,17 @@ def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
         H = q.shape[1]
         (t_k, t_k2), (t_w, t_w2) = t_dec[name]["cold"], t_dec[name]["warm"]
         t_p = cuda_ms(rotate(lambda k, v: decode_attention_plain(q, k, v, valid), copies))
-        mask = valid[:, None, None, :]
+        mask = valid.expand(B, C)[:, None, None, :]
         t_l = cuda_ms(rotate(lambda k, v: F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), copies))
         bound, by = bound_ms(moved, ops, kc.dtype)
         full = 2 * kc.numel() * kc.element_size() / HBM_BYTES_PER_S * 1e3
         log(f"[6] decode_attention {name} {str(kc.dtype).split('.')[1]} B{B} H{H}/{Hkv} "
-            f"C{C} d{d}, {int(valid.sum())} of {B * C} slots valid: kernel cold L2 "
-            f"{t_k:.4f} / {t_k2:.4f} ms ({moved / (t_k * 1e-3) / 1e9:.1f} GB/s of needed "
-            f"bytes, {bound / t_k:.4f} of the bound; {len(copies)} caches rotated), warm "
-            f"L2 {t_w:.4f} / {t_w2:.4f} ms; plain {t_p:.4f} ms, sdpa {t_l:.4f} ms (cold); "
-            f"bound {bound:.5f} ms ({by}); the whole cache would be {full:.5f} ms")
+            f"C{C} d{d}, {int(valid.expand(B, C).sum())} of {B * C} slots valid: kernel "
+            f"cold L2 {t_k:.4f} / {t_k2:.4f} ms ({moved / (t_k * 1e-3) / 1e9:.1f} GB/s of "
+            f"needed bytes, {bound / t_k:.4f} of the bound; {len(copies)} caches rotated), "
+            f"warm L2 {t_w:.4f} / {t_w2:.4f} ms; plain {t_p:.4f} ms, sdpa {t_l:.4f} ms "
+            f"(cold); bound {bound:.5f} ms ({by}); the whole cache would be {full:.5f} ms")
         rows.append({"name": "decode_attention", "route": "cuda",
                      "source": "src/repro_torch/csrc/decode_attention.cu",
                      "replaces": "src/repro/kernels/decode_attention/kernel.py:72",
@@ -1388,34 +1844,68 @@ def main() -> int:
     check_decode(device, errs)
     check_diag_recurrence(device, errs)
     peaks = [free_device("3")]
+    path_counts: dict = {}           # each driven path's launches, by path
     with tempfile.TemporaryDirectory(prefix="repro-torch-smoke-") as tmp:
-        counts = [phase_quickstart(device, tmp)]
-        counts.append(phase_qwen(cfg, qmanager, qimg, qparams, device))
+        path_counts["quickstart"] = phase_quickstart(device, tmp)
+        path_counts["qwen1.5"] = phase_qwen(cfg, qmanager, qimg, qparams, device)
         del qparams
         peaks.append(free_device("5"))
         serving = phase_serving(device, "qwen3_1_7b", "7")
-        counts.append(serving.pop("counts"))
+        path_counts["qwen3"] = serving.pop("counts")
         peaks.append(free_device("7"))
         qwen_cold = phase_coldstart(cfg, qmanager, tmp, "6", "qwen", baseline_rounds=3)
         peaks.append(free_device("6"))
         falcon = phase_falcon(device, tmp)
-        counts.append(falcon.pop("counts"))
+        path_counts["falcon"] = falcon.pop("counts")
         peaks.append(free_device("8"))
         griffin = phase_serving(device, "recurrentgemma_2b", "9")
-        counts.append(griffin.pop("counts"))
+        path_counts["recurrentgemma"] = griffin.pop("counts")
         peaks.append(free_device("9"))
-    launches = {k: sum(c.get(k, 0) for c in counts) for k in kernel_fns()}
+        granite = phase_serving(device, "granite_moe_3b_a800m", "10")
+        path_counts["granite"] = granite.pop("counts")
+        peaks.append(free_device("10"))
+        moonshot = phase_moonshot(device)
+        path_counts["moonshot"] = moonshot.pop("counts")
+        peaks.append(free_device("11"))
+        whisper = phase_frontend(device, "whisper_small")
+        path_counts["whisper"] = whisper.pop("counts")
+        peaks.append(free_device("12"))
+        internvl = phase_frontend(device, "internvl2_1b")
+        path_counts["internvl2"] = internvl.pop("counts")
+        peaks.append(free_device("12"))
+        h2o = phase_h2o(device)
+        path_counts["h2o"] = h2o.pop("counts")
+        peaks.append(free_device("13"))
+    launches = {k: sum(c.get(k, 0) for c in path_counts.values()) for k in kernel_fns()}
     log(f"[6] launches on the main paths: {launches}")
-    path_counts = {"qwen3": counts[2], "falcon": counts[3], "recurrentgemma": counts[4]}
+    path_counts["whisper-cross"] = path_counts["whisper"]
     path_routes = {"falcon": falcon.pop("diag_routes"),
                    "recurrentgemma": griffin.pop("diag_routes")}
+    # flash_attention's cuda_core launches by head dim: each fp32 path runs one
+    core_by_d = {}
+    for d, run in ((128, serving), (256, griffin), (64, granite), (64, whisper),
+                   (64, internvl)):
+        core_by_d[d] = core_by_d.get(d, 0) + run.pop("flash_routes")["cuda_core"]
+    log(f"[6] flash_attention cuda_core launches on the main paths by head dim: "
+        f"{core_by_d} (d=128: qwen3-1.7b; d=256: recurrentgemma-2b; d=64: granite-moe, "
+        f"whisper-small, internvl2-1b)")
+    h2o.pop("flash_routes")
     rows = phase_times(qimg, device, errs, launches, path_counts, path_routes,
                        {"qwen3": serving.pop("decode_inputs"),
-                        "recurrentgemma": griffin.pop("decode_inputs")})
+                        "recurrentgemma": griffin.pop("decode_inputs"),
+                        "granite": granite.pop("decode_inputs"),
+                        "internvl2": internvl.pop("decode_inputs"),
+                        "whisper-cross": whisper.pop("decode_inputs"),
+                        "h2o": h2o.pop("decode_inputs")})
     log(f"[6] qwen1.5-0.5b cold start, median of 3 (s): {json.dumps(qwen_cold)}")
     log(f"[7] serving summary: {json.dumps(serving)}")
     log(f"[8] falcon-mamba-7b summary: {json.dumps(falcon)}")
     log(f"[9] serving summary: {json.dumps(griffin)}")
+    log(f"[10] serving summary: {json.dumps(granite)}")
+    log(f"[11] moonshot summary: {json.dumps(moonshot)}")
+    log(f"[12] whisper-small summary: {json.dumps(whisper)}")
+    log(f"[12] internvl2-1b summary: {json.dumps(internvl)}")
+    log(f"[13] h2o-danube3-4b summary: {json.dumps(h2o)}")
     log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory {max(peaks) / 1e9:.2f} GB")
     print(card, flush=True)

@@ -3,11 +3,13 @@
 Each module defines ``CONFIG``, the exact published configuration, copied from
 the JAX package so the port never imports it. ``get_config(name)`` and
 ``list_archs()`` are the programmatic API; ``get_reduced(name)`` returns the
-CPU smoke-test variant. Every id resolves here; the port's model runs the
-dense ones (gemma2_27b, qwen3_1_7b, h2o_danube3_4b, qwen1_5_0_5b,
-fnbench_tiny), falcon_mamba_7b (SSM) and recurrentgemma_2b (RG-LRU hybrid),
-and raises ``NotImplementedError`` for the MoE, encoder-decoder and VLM ones
-(``models.transformer.check_supported``).
+CPU smoke-test variant. The port's model runs every id: the dense ones
+(gemma2_27b, qwen3_1_7b, h2o_danube3_4b, qwen1_5_0_5b, fnbench_tiny),
+falcon_mamba_7b (SSM), recurrentgemma_2b (RG-LRU hybrid), the MoE ones
+(granite_moe_3b_a800m, moonshot_v1_16b_a3b), whisper_small (encoder-decoder)
+and internvl2_1b (VLM). The serving engine admits token prompts only, as the
+reference's does, so whisper and internvl2 are served through
+``models.api.make_prefill_step`` with their stub frontend embeddings.
 """
 from __future__ import annotations
 

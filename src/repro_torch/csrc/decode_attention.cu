@@ -49,6 +49,10 @@
 //   weigh a -inf max as exactly 0 and never form -inf - (-inf). Split 0 holds
 //   lo, so it is never empty and its max is finite. A second kernel merges
 //   the splits of each head when n_splits > 1, against the max over them.
+// - A head dim that is not a power of two (h2o-danube3's 120) is padded in
+//   shared memory only: q and the K/V tiles are DP = pow2ceil(D) wide, their
+//   columns D..DP-1 zeros (cp.async fills them without reading), so the
+//   thread layout of DP applies; the cache is read in place, never copied.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -67,13 +71,16 @@ constexpr int kStageBudget = 104 * 1024;    // shared memory for the stage ring,
 constexpr float kNegInf = -2.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 
+constexpr int kMaxSmem = 232448;            // dynamic shared memory a block may use
 constexpr int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+__host__ __device__ constexpr int pow2ceil(int x) { return x <= 1 ? 1 : 2 * pow2ceil((x + 1) / 2); }
 
 template <typename T, int D, int G>
 struct Cfg {
+  static constexpr int DP = pow2ceil(D);                          // shared row width
   static constexpr int EPL = 16 / static_cast<int>(sizeof(T));  // elements per 16 bytes
-  static constexpr int NV = D / EPL;                              // 16-byte vectors per row
-  static constexpr int RS = D * static_cast<int>(sizeof(T)) + 16; // padded row, bytes
+  static constexpr int NV = DP / EPL;                             // 16-byte vectors per row
+  static constexpr int RS = DP * static_cast<int>(sizeof(T)) + 16; // padded row, bytes
   static constexpr int SB = 2 * kTile * RS;                       // one stage: K and V tiles
   static constexpr int NST = clampi(kStageBudget / SB, 1, 4);     // stages in the ring
   // scores: each thread dots KPT keys (sharing its q loads among them) over
@@ -85,16 +92,17 @@ struct Cfg {
   static constexpr int KG = kThreads / NV;                        // key groups in P.V
   static constexpr int HPW = (G + kWarps - 1) / kWarps;           // heads per softmax warp
   static constexpr int GP = (G + 3) / 4 * 4;                      // probabilities per key
-  static constexpr int RED = KG * G * D * 4;                      // key-group merge buffer
+  static constexpr int RED = KG * G * DP * 4;                     // key-group merge buffer
   static constexpr int REGION = NST * SB > RED ? NST * SB : RED;
-  static constexpr int OFF_Q = REGION;                            // q, fp32 (G, D)
-  static constexpr int OFF_SC = OFF_Q + G * D * 4;                // partial scores
+  static constexpr int OFF_Q = REGION;                            // q, fp32 (G, DP)
+  static constexpr int OFF_SC = OFF_Q + G * DP * 4;               // partial scores
   static constexpr int OFF_P = OFF_SC + SP * G * kTile * 4;       // probabilities (kTile, GP)
   static constexpr int OFF_A = OFF_P + GP * kTile * 4;            // alpha, m, l per head
   static constexpr int OFF_I = OFF_A + (3 * G * 4 + 15) / 16 * 16;
   static constexpr int BYTES = OFF_I + (NST + 3 * kWarps) * 4;
   static_assert(NV >= SP && NV % SP == 0 && kThreads % NV == 0 &&
-                kTile % KG == 0, "unsupported head dim");
+                kTile % KG == 0 && D % EPL == 0, "unsupported head dim");
+  static_assert(BYTES <= kMaxSmem, "the configuration does not fit shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -185,8 +193,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int valid_stride, float scale, int has_softcap, float softcap,
                     int n_splits) {
   using C = Cfg<T, D, G>;
-  constexpr int EPL = C::EPL, NV = C::NV, RS = C::RS, NST = C::NST, KG = C::KG,
-                HPW = C::HPW;
+  constexpr int DP = C::DP, EPL = C::EPL, NV = C::NV, RS = C::RS, NST = C::NST,
+                KG = C::KG, HPW = C::HPW;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sq = reinterpret_cast<float*>(smem + C::OFF_Q);
   float* sc = reinterpret_cast<float*>(smem + C::OFF_SC);
@@ -206,7 +214,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // q rows of the g heads that share this kv head, (b, hk*G + gi) = bh*G + gi
   const T* qbase = q + static_cast<size_t>(bh) * G * D;
-  for (int t = tid; t < G * D; t += kThreads) sq[t] = to_float(qbase[t]);
+  for (int t = tid; t < G * DP; t += kThreads) {
+    const int gi = t / DP, c = t % DP;
+    sq[t] = c < D ? to_float(qbase[gi * D + c]) : 0.f;
+  }
 
   // the row's live extent: first and last valid slot, and how many are valid
   int lo = S, hi = -1, cnt = 0;
@@ -277,10 +288,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return -1;
   };
   const int vcol = tid % NV, kg = tid / NV;    // this thread's column vector and key group
+  const bool col_in = vcol * EPL < D;          // false: a pad column, zeros
   // a tile's K rows, then its V rows, as two copy groups (empty ones for
   // ts < 0) so the scores can start before V lands; this thread copies
   // column vector vcol of rows kg, kg + KG, ... (rows past the share arrive
-  // as zeros)
+  // as zeros, and so do pad columns)
   auto issue = [&](int stage, int ts) {
     const uint32_t base = smem_u32(smem + stage * C::SB) + vcol * 16;
 #pragma unroll
@@ -288,8 +300,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (ts >= 0) {
         const T* src = half ? vb : kb;
         for (int r = kg; r < kTile; r += KG) {
-          const bool in = ts + r < s1;
-          const size_t off = static_cast<size_t>(in ? ts + r : ts) * D + vcol * EPL;
+          const bool in = ts + r < s1 && col_in;
+          const size_t off = in ? static_cast<size_t>(ts + r) * D + vcol * EPL
+                                : static_cast<size_t>(ts) * D;
           cp_async16(base + (half * kTile + r) * RS, src + off, in);
         }
       }
@@ -347,7 +360,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) {
           float qf[EPL];
-          load_f32<EPL>(sq + gi * D + c * EPL, qf);   // a broadcast
+          load_f32<EPL>(sq + gi * DP + c * EPL, qf);  // a broadcast
 #pragma unroll
           for (int j = 0; j < C::KPT; ++j)
 #pragma unroll
@@ -437,7 +450,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) red[(kg * G + gi) * D + vcol * EPL + e] = acc[gi][e];
+    for (int e = 0; e < EPL; ++e) red[(kg * G + gi) * DP + vcol * EPL + e] = acc[gi][e];
   if (lane == 0) {
 #pragma unroll
     for (int i = 0; i < HPW; ++i) {
@@ -453,7 +466,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int gi = t / D, c = t % D;
     float a = 0.f;
 #pragma unroll
-    for (int j = 0; j < KG; ++j) a += red[(j * G + gi) * D + c];
+    for (int j = 0; j < KG; ++j) a += red[(j * G + gi) * DP + c];
     const size_t hd = static_cast<size_t>(bh) * G + gi;   // b * H + h
     if (n_splits == 1) {
       out[hd * D + c] = from_f<T>(a / fmaxf(sm_l[gi], 1e-30f));
@@ -469,7 +482,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // One block of kCombineThreads per (b, h): merge the splits, in about one
-// L2 round trip. The threads, kCombineThreads / D ways per output column,
+// L2 round trip. The threads, kCombineThreads / D ways per output column (the
+// last kCombineThreads % D threads idle),
 // first load their splits' accumulators (up to kPre each) into registers;
 // meanwhile warp 0 finds the max over the splits (split 0's is finite), each
 // split's weight exp(m_i - max) (0 for an empty split) and the merged l.
@@ -489,11 +503,12 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int D
   const float* p = part + head * n_splits * stride;
   const int tid = threadIdx.x, lane = tid & 31;
   const int ways = kCombineThreads / D, c = tid % D, w = tid / D;
+  const int mine = w < ways ? n_splits : 0;    // the splits this thread reads
   float v[kPre];
 #pragma unroll
   for (int j = 0; j < kPre; ++j) {
     const int i = w + j * ways;
-    v[j] = i < n_splits ? p[i * stride + 2 + c] : 0.f;
+    v[j] = i < mine ? p[i * stride + 2 + c] : 0.f;
   }
   if (tid < 32) {
     float ms[2], ls[2], mx = -INFINITY;        // the first 64 splits from registers
@@ -531,9 +546,9 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int D
 #pragma unroll
   for (int j = 0; j < kPre; ++j) {
     const int i = w + j * ways;
-    if (i < n_splits) aa = fmaf(v[j], sh[i], aa);
+    if (i < mine) aa = fmaf(v[j], sh[i], aa);
   }
-  for (int i = w + kPre * ways; i < n_splits; i += ways)
+  for (int i = w + kPre * ways; i < mine; i += ways)
     aa = fmaf(p[i * stride + 2 + c], sh[i], aa);
   float* red = sh + n_splits;
   red[tid] = aa;
@@ -616,33 +631,26 @@ struct Tag {
   static constexpr int D = D_, G = G_;
 };
 
-template <typename T, int D, typename F>
-int with_g(int G, F&& f) {
-  switch (G) {
-    case 1: return f(Tag<T, D, 1>{});
-    case 2: return f(Tag<T, D, 2>{});
-    case 4: return f(Tag<T, D, 4>{});
-    case 8: return f(Tag<T, D, 8>{});
-    case 10: return f(Tag<T, D, 10>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+// The (D, G) pairs with a compiled split kernel: every config's head dim and
+// group (H/Hkv) and the shapes the tests hold. ops.SHAPES is the same list;
+// a config that needs another pair adds it to both.
+#define DECODE_SHAPES(X)                                                          \
+  X(32, 1) X(64, 1) X(64, 2) X(64, 3) X(64, 7) X(120, 4) X(120, 7) X(128, 1)     \
+  X(128, 2) X(128, 8) X(256, 10)
 
 template <typename T, typename F>
-int with_d(int D, int G, F&& f) {
-  switch (D) {
-    case 32: return with_g<T, 32>(G, f);
-    case 64: return with_g<T, 64>(G, f);
-    case 128: return with_g<T, 128>(G, f);
-    case 256: return with_g<T, 256>(G, f);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int with_shape(int D, int G, F&& f) {
+#define DECODE_CASE(d, g) \
+  if (D == d && G == g) return f(Tag<T, d, g>{});
+  DECODE_SHAPES(DECODE_CASE)
+#undef DECODE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename F>
 int with_config(int dtype, int D, int G, F&& f) {
-  if (dtype == 0) return with_d<float>(D, G, f);
-  if (dtype == 1) return with_d<__nv_bfloat16>(D, G, f);
+  if (dtype == 0) return with_shape<float>(D, G, f);
+  if (dtype == 1) return with_shape<__nv_bfloat16>(D, G, f);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

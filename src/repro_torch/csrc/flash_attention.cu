@@ -39,6 +39,12 @@
 // d=256 the tiles take 213,760 bytes of shared memory, one block per SM.
 //
 // Both skip kv tiles that the causal or window mask hides from a whole q tile.
+//
+// Head dims that are not a multiple of 16 (h2o-danube3's 120) are padded in
+// shared memory only: rows of D elements arrive in tiles DP = pad16(D) wide
+// whose columns D..DP-1 are zeros, so the k-steps of 16 and the column split
+// work on DP; nothing is padded in device memory, and only D columns are
+// written back.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -50,6 +56,9 @@ namespace {
 
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the head dim a shared-memory tile is laid out for: D rounded up to 16
+__host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
 
 // ---------------------------------------------------------------------------------
 // cuda_core route (fp32)
@@ -72,7 +81,7 @@ __device__ __forceinline__ float group16_sum(float x) {
 
 template <int D>
 constexpr size_t smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
+  return BQ * (D + 1) + BK * (D + 1) + BK * pad16(D) + BQ * (BK + 1);
 }
 
 template <int D>
@@ -84,12 +93,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int QP = D + 1;
   constexpr int KP = D + 1;
   constexpr int PP = BK + 1;
-  constexpr int CPT = D / 16;          // output columns per thread
+  constexpr int DP = pad16(D);         // V rows in shared memory, zeros past D
+  constexpr int CPT = DP / 16;         // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                    // BQ x QP
   float* Ks = Qs + BQ * QP;            // BK x KP
-  float* Vs = Ks + BK * KP;            // BK x D
-  float* Ps = Vs + BK * D;             // BQ x PP
+  float* Vs = Ks + BK * KP;            // BK x DP
+  float* Ps = Vs + BK * DP;            // BQ x PP
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -105,6 +115,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     Qs[r * QP + c] = (q0 + r < Sq) ? qp[i] : 0.f;
+  }
+  if constexpr (DP != D) {             // the pad columns of V, never loaded
+    for (int i = tid; i < BK * (DP - D); i += kThreads)
+      Vs[(i / (DP - D)) * DP + D + i % (DP - D)] = 0.f;
   }
 
   float m[4], l[4], acc[4][CPT];
@@ -129,7 +143,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const bool in = kt + r < Sk;
       const size_t g = static_cast<size_t>(kt) * D + i;
       Ks[r * KP + c] = in ? kp[g] : 0.f;
-      Vs[r * D + c] = in ? vp[g] : 0.f;
+      Vs[r * DP + c] = in ? vp[g] : 0.f;
     }
     __syncthreads();
 
@@ -193,7 +207,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PP + kk];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float vv = Vs[kk * D + tx + 16 * c];
+        const float vv = Vs[kk * DP + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -207,7 +221,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
     float* orow = o + (static_cast<size_t>(bh) * Sq + qi) * D;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
+    for (int c = 0; c < CPT; ++c)
+      if (tx + 16 * c < D) orow[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
@@ -283,24 +298,26 @@ template <int D, int TBQ, int TBK>
 struct TcCfg {
   static constexpr int kWarps = TBQ / 16;
   static constexpr int kThreads = kWarps * 32;
-  static constexpr int kStride = D + 8;          // bf16 per shared row: 16 B of padding
-  static constexpr bool kQRegs = D <= 128;       // Q fragment kept in registers
+  static constexpr int DP = pad16(D);            // tile width: k-steps of 16
+  static constexpr int kStride = DP + 8;         // bf16 per shared row: 16 B of padding
+  static constexpr bool kQRegs = DP <= 128;      // Q fragment kept in registers
   static constexpr int kQTile = TBQ * kStride;
   static constexpr int kKVTile = TBK * kStride;
   static constexpr size_t kSmem = (kQTile + 4 * kKVTile) * sizeof(bf16);  // Q, K[2], V[2]
 };
 
-// rows [0, R) of a (rows, D) bf16 tile into shared memory; rows >= valid are zeros
+// rows [0, R) of a (rows, D) bf16 tile into a shared tile pad16(D) wide; rows
+// >= valid and columns >= D are zeros
 template <int R, int D, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int valid, int tid) {
-  constexpr int CPR = D / 8;                     // 16-byte chunks per row
-  constexpr int kStride = D + 8;
+  constexpr int CPR = pad16(D) / 8;              // 16-byte chunks per shared row
+  constexpr int kStride = pad16(D) + 8;
 #pragma unroll
   for (int i = tid; i < R * CPR; i += NT) {
     const int r = i / CPR, c = i % CPR;
-    const bool in = r < valid;
+    const bool in = r < valid && c * 8 < D;
     cp_async16(dst + (r * kStride + c * 8) * 2,
-               src + static_cast<size_t>(in ? r : 0) * D + c * 8, in);
+               src + (in ? static_cast<size_t>(r) * D + c * 8 : 0), in);
   }
 }
 
@@ -318,7 +335,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NT = C::kThreads;
   constexpr int kStride = C::kStride;
   constexpr int NS = TBK / 8;                    // 8-key column blocks of S
-  constexpr int NO = D / 8;                      // 8-wide column blocks of O
+  constexpr int KS = C::DP / 16;                 // k-steps of Q.K^T, 16-wide blocks of O
+  constexpr int NO = C::DP / 8;                  // 8-wide column blocks of O
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   const uint32_t q_s = smem_u32(Qs);
@@ -372,7 +390,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  uint32_t qf[C::kQRegs ? D / 16 : 1][4];
+  uint32_t qf[C::kQRegs ? KS : 1][4];
 
   for (int it = 0; it < n_kt; ++it) {
     const int kt = kt0 + it * TBK;
@@ -391,7 +409,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (C::kQRegs) {
       if (it == 0) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], q_s + a_off + kk * 32);
+        for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], q_s + a_off + kk * 32);
       }
     }
     const uint32_t ks = k_s + st * C::kKVTile * 2;
@@ -404,7 +422,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       uint32_t af[4];
       if constexpr (C::kQRegs) {
 #pragma unroll
@@ -493,7 +511,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int nb = 0; nb < D / 16; ++nb) {
+      for (int nb = 0; nb < KS; ++nb) {
         uint32_t bb[4];
         ldmatrix_x4_trans(bb, vs + vb_off + (kk * 16 * kStride + nb * 16) * 2);
         mma_bf16(acc[2 * nb], pf, bb[0], bb[1]);
@@ -524,7 +542,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pack_bf16(acc[n][2] * inv[1], acc[n][3] * inv[1]);
   }
   __syncwarp();
-  constexpr int CPR = D / 8;
+  constexpr int CPR = D / 8;                     // 16-byte chunks of a global row
   bf16* orow0 = o + (static_cast<size_t>(bh) * Sq + q0 + warp * 16) * D;
   const int rows = min(16, Sq - q0 - warp * 16);
   for (int i = lane; i < 16 * CPR; i += 32) {
@@ -627,6 +645,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     switch (D) {
       case 32: return launch_core<32>(a, block_q, block_k);
       case 64: return launch_core<64>(a, block_q, block_k);
+      case 120: return launch_core<120>(a, block_q, block_k);
       case 128: return launch_core<128>(a, block_q, block_k);
       case 256: return launch_core<256>(a, block_q, block_k);
     }
@@ -634,6 +653,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     switch (D) {
       case 32: return launch_tc<32, 64, 64, 1>(a, block_q, block_k);
       case 64: return launch_tc<64, 64, 64, 1>(a, block_q, block_k);
+      case 120: return launch_tc<120, 64, 64, 1>(a, block_q, block_k);
       case 128: return launch_tc<128, 64, 64, 1>(a, block_q, block_k);
       case 256: return launch_tc<256, 64, 64, 1>(a, block_q, block_k);
     }

@@ -31,8 +31,13 @@ import torch
 from repro_torch.kernels.build import check, library, on_device
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128, 256)
-GROUPS = (1, 2, 4, 8, 10)
+#: (head dim, H/Hkv) pairs with a compiled kernel: every config's and the
+#: tests' shapes, as ``DECODE_SHAPES`` in ``csrc/decode_attention.cu`` lists
+#: them (a config that needs another pair adds it to both); d=120
+#: (h2o-danube3) runs on shared-memory tiles 128 wide whose pad columns are
+#: zeros, reading the cache in place
+SHAPES = ((32, 1), (64, 1), (64, 2), (64, 3), (64, 7), (120, 4), (120, 7), (128, 1),
+          (128, 2), (128, 8), (256, 10))
 TILE = 32                        # cache rows per pipeline stage in the kernel
 MAX_SPLITS = 4096                # the combine kernel's limit
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,6 +62,14 @@ def decode_attention_plain(q, k_cache, v_cache, valid, *, softcap=None,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
     return out.reshape(B, H, d).to(q.dtype)
+
+
+def check_shape(d: int, group: int) -> None:
+    """Raise ``ValueError`` unless a kernel is compiled for head dim ``d`` and
+    ``group`` = H/Hkv query heads per kv head."""
+    if (d, group) not in SHAPES:
+        raise ValueError(f"the kernel takes (head dim, H/Hkv) in {SHAPES}, got "
+                         f"({d}, {group})")
 
 
 def plan_splits(B: int, Hkv: int, S: int, n_sms: int, blocks_per_sm: int) -> int:
@@ -114,8 +127,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     ``valid`` (``(S,)`` or ``(B, S)``, bool or integer) marks the live slots.
 
     CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch the
-    kernel (contiguous, 16-byte aligned fp32 or bf16, d in 32/64/128/256, g
-    in 1/2/4/8/10), counted in ``decode_attention.launches``.
+    kernel (contiguous, 16-byte aligned fp32 or bf16, (d, g) in
+    :data:`SHAPES`), counted in ``decode_attention.launches``.
     """
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"want q (B,H,d) and k/v (B,Hkv,S,d), got {tuple(q.shape)}, "
@@ -141,9 +154,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS or H // Hkv not in GROUPS:
-        raise ValueError(f"the kernel takes head dim in {HEAD_DIMS} and H/Hkv in "
-                         f"{GROUPS}, got d={d}, H/Hkv={H // Hkv}")
+    check_shape(d, H // Hkv)
     tensors = (q, k_cache, v_cache)
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError("q and the cache must be contiguous and 16-byte aligned")

@@ -28,7 +28,9 @@ import torch
 from repro_torch.kernels.build import check, library, on_device
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128, 256)
+#: head dims with a compiled kernel; 120 (h2o-danube3) runs on tiles 128 wide
+#: whose pad columns are zeros in shared memory, never in device memory
+HEAD_DIMS = (32, 64, 120, 128, 256)
 ROUTES = ("cuda_core", "tc_bf16")     # index = the route code the CUDA side takes
 #: (block_q, block_k) of the tensor-core route at every head dim, as compiled
 #: in csrc/flash_attention.cu: 4 warps of 16 q rows, 64-key tiles (on one
@@ -113,7 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch the
     kernel on the route :func:`plan` picks (contiguous fp32 or bf16, d in
-    32/64/128/256; bf16 16-byte aligned), counted in
+    :data:`HEAD_DIMS`; bf16 16-byte aligned), counted in
     ``flash_attention.launches`` and per route in
     ``flash_attention.launches_by_route``.
     """

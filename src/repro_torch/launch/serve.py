@@ -10,8 +10,11 @@ from the pool and then serves continuous-batched decode traffic. It runs on
   python -m repro_torch.launch.serve --arch qwen3_1_7b
   python -m repro_torch.launch.serve --arch recurrentgemma_2b --reduced --device cpu
   python -m repro_torch.launch.serve --arch recurrentgemma_2b
+  python -m repro_torch.launch.serve --arch granite_moe_3b_a800m
+  python -m repro_torch.launch.serve --arch moonshot_v1_16b_a3b --reduced --device cpu
 
-``--arch`` takes the dense ids, falcon_mamba_7b and recurrentgemma_2b; its
+``--arch`` takes every id whose prompts are tokens alone (all but
+whisper_small and internvl2_1b, which need frontend embeddings); its
 images hold fp32 parameters, as the reference builds them, and run with TF32
 off (fp32 products and convolutions in full fp32). The ``--image`` ones are
 the workload suite's bf16 images, which the port serves with a bf16 decode

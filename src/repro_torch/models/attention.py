@@ -12,9 +12,17 @@ layers, ``seq`` for global) with an explicit per-slot logical position array
 decode mask is computed from positions, so ring wraparound needs no special
 case and each batch row keeps its own position stream.
 
+Cross attention (whisper's decoder over the encoder output) has no rope and
+no mask: a prompt's queries go through ``kernels/flash_attention`` with
+``causal=False`` over the Senc encoder keys, a decode step's one query
+through ``kernels/decode_attention`` over them with an all-valid mask. The
+reference computes both with its jnp blockwise path. The encoder keys and
+values are projected once per prompt (:func:`project_cross_kv`) and kept
+``(B, Hkv, Senc, hd)``, the cache layout, so the kernels read them without
+a transpose; the reference keeps them ``(B, Senc, Hkv, hd)``.
+
 Dtypes: where activations and cache or weights differ, the port promotes as
-JAX does (``layers.promote`` / ``layers.matmul``). Cross attention comes with
-the encoder-decoder family.
+JAX does (``layers.promote`` / ``layers.matmul``).
 """
 from __future__ import annotations
 
@@ -234,3 +242,48 @@ def attention_decode(
     out = decode_attention(q, cache, pos_t, window=window,
                            attn_softcap=cfg.attn_logit_softcap, decode_fn=decode_fn)
     return matmul(out.reshape(*x.shape[:-1], -1), params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------------
+
+def project_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ArchConfig):
+    """The encoder output's keys and values for one cross-attention layer,
+    each ``(B, Hkv, Senc, hd)``."""
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    B, Senc = enc_out.shape[:2]
+    k = matmul(enc_out, params["wk"]).reshape(B, Senc, hk, hd)
+    v = matmul(enc_out, params["wv"]).reshape(B, Senc, hk, hd)
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+
+def _cross_q(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    q = matmul(x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    return q.reshape(*x.shape[:-1], cfg.n_heads, cfg.resolved_head_dim)
+
+
+def cross_attention(params: dict, x: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor, cfg: ArchConfig, *,
+                    attention_fn: Callable = flash_attention) -> torch.Tensor:
+    """x (B, Sq, D) over the encoder's keys and values ``(B, Hkv, Senc, hd)``,
+    non-causal -> (B, Sq, D). ``attention_fn`` is the core: the kernel wrapper
+    by default, or its plain version."""
+    q = _cross_q(params, x, cfg)
+    qh, k, v = promote(q.transpose(1, 2).contiguous(), enc_k, enc_v)
+    out = attention_fn(qh, k, v, causal=False, window=None, softcap=None)
+    return matmul(out.transpose(1, 2).reshape(*x.shape[:-1], -1), params["wo"])
+
+
+def cross_attention_decode(params: dict, x: torch.Tensor, enc_k: torch.Tensor,
+                           enc_v: torch.Tensor, valid: torch.Tensor, cfg: ArchConfig, *,
+                           decode_fn: Callable = decode_kernel) -> torch.Tensor:
+    """One token's cross attention: x (B, 1, D) -> (B, 1, D), through the
+    one-query core over the encoder positions ``valid`` (Senc,) marks (all of
+    them, in the model)."""
+    q = _cross_q(params, x, cfg)
+    qh, k, v = promote(q[:, 0].contiguous(), enc_k, enc_v)
+    out = decode_fn(qh, k, v, valid, softcap=None)
+    return matmul(out.reshape(*x.shape[:-1], -1), params["wo"])

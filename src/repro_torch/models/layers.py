@@ -83,6 +83,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def _sinusoid_scale(d_model: int, device=None) -> torch.Tensor:
+    half = d_model // 2
+    return torch.exp(-torch.arange(half, dtype=torch.float32, device=device)
+                     * math.log(10_000.0) / max(half - 1, 1))
+
+
+def sinusoidal_positions(n_pos: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal table (n_pos, d_model), fp32, computed on the
+    fly (no params)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    angles = pos * _sinusoid_scale(d_model, device)[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def sinusoidal_position_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Sinusoidal rows for scalar or (B,) positions: (d_model,) or (B, d_model)."""
+    angles = pos.float()[..., None] * _sinusoid_scale(d_model, pos.device)
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
 # ---------------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------------

@@ -1,22 +1,30 @@
-"""Decoder-only model: init, prefill forward and single-token decode.
+"""The model: init, prefill forward and single-token decode, for every family.
 
-Port of ``repro.models.transformer`` for the decoder-only families: dense
-GLOBAL/LOCAL attention layers with a dense MLP, attention-free Mamba-1 stacks
-(SSM layers) and hybrid RG-LRU/local-attention stacks (Griffin, with remainder
-layers). Parameters keep the reference layout, so a page table built by either
+Port of ``repro.models.transformer``: dense GLOBAL/LOCAL attention layers,
+attention-free Mamba-1 stacks (SSM layers), hybrid RG-LRU/local-attention
+stacks (Griffin, with remainder layers), mixture-of-experts MLPs
+(``models/moe.py``), the encoder-decoder (whisper: a non-causal encoder over
+stub frame embeddings, sinusoidal positions, cross attention in every decoder
+layer) and the VLM (stub patch embeddings prepended to the tokens).
+Parameters keep the reference layout, so a page table built by either
 package names the same leaves: one repeating pattern unit stacked along a
 leading ``n_units`` axis in ``params["unit"]`` (a tuple, one dict per pattern
-position), remainder layers in ``params["rem"]``. JAX's ``vmap`` init draws
-the stacked leaves directly here, and its ``lax.scan`` over units is a Python
-loop that indexes the stacked leaves by unit. The decode state keeps the same
-layout: per pattern position a :class:`~repro_torch.models.attention.KVCache`,
+position), remainder layers in ``params["rem"]``, whisper's encoder stacked
+along ``n_enc_layers`` in ``params["enc"]`` with ``params["enc_norm"]``.
+JAX's ``vmap`` init draws the stacked leaves directly here, and its
+``lax.scan`` over units is a Python loop that indexes the stacked leaves by
+unit. The decode state keeps the same layout: per pattern position a
+:class:`~repro_torch.models.attention.KVCache`,
 :class:`~repro_torch.models.ssm.SSMState` or
 :class:`~repro_torch.models.rglru.RGLRUState` whose leaves carry a leading
-``n_units`` axis, per remainder layer an unstacked one, and ``pos``.
+``n_units`` axis, per remainder layer an unstacked one, ``pos``, and for the
+encoder-decoder ``cross``: each unit's encoder keys and values,
+``(n_units, B, Hkv, Senc, hd)`` (the reference orders the last three axes
+``Senc, Hkv, hd``; the port keeps the cache layout its kernels read).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +32,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.diag_recurrence import diag_recurrence
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import GLOBAL_ATTN, LOCAL_ATTN, RECURRENT, SSM, ArchConfig
@@ -34,20 +43,10 @@ from repro_torch.models.layers import (
     init_rmsnorm,
     mlp,
     rmsnorm,
+    sinusoidal_position_at,
+    sinusoidal_positions,
     unembed,
 )
-
-_PORTED_LAYERS = (GLOBAL_ATTN, LOCAL_ATTN, SSM, RECURRENT)
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the configurations this port does not run yet."""
-    if (cfg.n_experts > 0 or cfg.is_encoder_decoder or cfg.frontend is not None
-            or any(t not in _PORTED_LAYERS for t in cfg.attn_pattern)):
-        raise NotImplementedError(
-            f"{cfg.name}: the dense, SSM (Mamba-1) and hybrid RG-LRU families are "
-            "ported; MoE, encoder-decoder and VLM configs wait for ROADMAP.md "
-            "queue 1, 'Other architectures'")
 
 
 def _ltype(cfg: ArchConfig, i: int) -> str:
@@ -56,7 +55,7 @@ def _ltype(cfg: ArchConfig, i: int) -> str:
 
 
 def _init_layer(gen: torch.Generator, cfg: ArchConfig, ltype: str, dtype,
-                lead=()) -> Dict[str, Any]:
+                lead=(), *, cross: bool = False) -> Dict[str, Any]:
     d = cfg.d_model
     if ltype == SSM:
         return {"ln1": init_rmsnorm(gen, d, dtype, lead),
@@ -66,8 +65,14 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, ltype: str, dtype,
         p["rec"] = rglru_mod.init_rglru(gen, cfg, dtype, lead)
     else:
         p["attn"] = attn.init_attention(gen, cfg, dtype, lead)
+    if cross:
+        p["lnx"] = init_rmsnorm(gen, d, dtype, lead)
+        p["xattn"] = attn.init_attention(gen, cfg, dtype, lead, cross=True)
     p["ln2"] = init_rmsnorm(gen, d, dtype, lead)
-    p["mlp"] = init_mlp(gen, cfg, dtype, lead)
+    if cfg.n_experts > 0:
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, dtype, lead)
     return p
 
 
@@ -75,16 +80,21 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
                 dtype=torch.bfloat16) -> Dict[str, Any]:
     """Random parameters on ``gen.device``, drawn from ``gen``. The SSM and
     RG-LRU leaves the reference keeps in fp32 (``dt_bias``, ``A_log``,
-    ``D``, ``b_a``, ``b_x``, ``lambda``) are fp32 here too."""
-    check_supported(cfg)
+    ``D``, ``b_a``, ``b_x``, ``lambda``) and the MoE router are fp32 here too."""
     lead = (cfg.n_pattern_units,)
-    return {
+    cross = cfg.is_encoder_decoder
+    params = {
         "embed": init_embedding(gen, cfg, dtype),
         "final_norm": init_rmsnorm(gen, cfg.d_model, dtype),
-        "unit": tuple(_init_layer(gen, cfg, t, dtype, lead) for t in cfg.attn_pattern),
-        "rem": tuple(_init_layer(gen, cfg, _ltype(cfg, i), dtype)
+        "unit": tuple(_init_layer(gen, cfg, t, dtype, lead, cross=cross)
+                      for t in cfg.attn_pattern),
+        "rem": tuple(_init_layer(gen, cfg, _ltype(cfg, i), dtype, cross=cross)
                      for i in range(cfg.n_remainder_layers)),
     }
+    if cross:                 # encoder layers: non-causal global attention
+        params["enc"] = _init_layer(gen, cfg, GLOBAL_ATTN, dtype, (cfg.n_enc_layers,))
+        params["enc_norm"] = init_rmsnorm(gen, cfg.d_model, dtype)
+    return params
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -93,10 +103,24 @@ def _index(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _apply_mlp_part(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, *,
+                    decode: bool = False) -> torch.Tensor:
+    """The MLP sublayer, dense or mixture-of-experts. The experts' aux loss
+    only feeds training, which this port does not run yet, so it is dropped;
+    decode routes with ``no_drop`` as the reference does."""
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.n_experts > 0:
+        out, _ = moe_mod.moe_ffn(p["moe"], h, cfg, no_drop=decode)
+    else:
+        out = mlp(p["mlp"], h, cfg.mlp)
+    return x + out
+
+
 def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str,
                  positions: torch.Tensor, attention_fn: Callable, recurrence_fn: Callable,
                  make_state: bool = False, state_len: Optional[int] = None,
-                 rec_chunk: int = 256):
+                 rec_chunk: int = 256, causal: bool = True,
+                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Returns ``(x, layer state)``, the state None unless ``make_state``."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if ltype == SSM:                      # the Mamba block replaces attention and MLP
@@ -107,13 +131,16 @@ def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str
         out, st = rglru_mod.rglru_prefill(p["rec"], h, cfg, make_state=make_state,
                                           recurrence_fn=recurrence_fn)
     else:
-        out = attn.attention_prefill(p["attn"], h, cfg, ltype, positions, causal=True,
+        out = attn.attention_prefill(p["attn"], h, cfg, ltype, positions, causal=causal,
                                      attention_fn=attention_fn, make_cache=make_state,
                                      state_len=state_len)
         out, st = out if make_state else (out, None)
     x = x + out
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.mlp), st
+    if cross_kv is not None:
+        hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
+        x = x + attn.cross_attention(p["xattn"], hx, *cross_kv, cfg,
+                                     attention_fn=attention_fn)
+    return _apply_mlp_part(p, x, cfg), st
 
 
 def _stack(states):
@@ -121,11 +148,26 @@ def _stack(states):
     return type(states[0])(*(torch.stack(leaves) for leaves in zip(*states)))
 
 
+def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ArchConfig, *,
+           attention_fn: Callable = flash_attention) -> torch.Tensor:
+    """frames: (B, Senc, D) stub embeddings -> the encoder output, through
+    ``n_enc_layers`` non-causal global layers in the parameters' dtype."""
+    x = frames.to(params["enc_norm"]["scale"].dtype)
+    S = x.shape[1]
+    x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    for u in range(cfg.n_enc_layers):
+        x, _ = _apply_layer(_index(params["enc"], u), x, cfg, GLOBAL_ATTN, positions,
+                            attention_fn, diag_recurrence, causal=False)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,                   # (B, S) integer
     cfg: ArchConfig,
     *,
+    frontend_embeds: Optional[torch.Tensor] = None,   # (B, F, D): audio frames / patches
     logits_slice: Optional[int] = None,     # keep only the last N positions' logits
     return_features: bool = False,          # skip unembed
     attention_fn: Callable = flash_attention,
@@ -134,27 +176,47 @@ def forward(
     state_len: Optional[int] = None,        # decode-state capacity (prompt + budget)
     rec_chunk: int = 256,                   # SSM positions expanded per recurrence call
 ):
-    """Logits fp32 (B, S, Vp), or features (B, S, D) with ``return_features``.
+    """Logits fp32 (B, S_total, Vp), or features (B, S_total, D) with
+    ``return_features``.
 
-    ``attention_fn`` and ``recurrence_fn`` are the prefill attention core and
-    the diagonal recurrence: the kernel wrappers by default, or their plain
+    ``frontend_embeds`` feeds the stub frontends: whisper's encoder takes the
+    frames (required) and the decoder adds sinusoidal positions to the
+    tokens; a VLM prepends the patches, so S_total = F + S and positions run
+    over both. ``attention_fn`` and ``recurrence_fn`` are the prefill
+    attention core (self and cross attention, and the encoder's) and the
+    diagonal recurrence: the kernel wrappers by default, or their plain
     versions to check the kernel path. With ``make_state`` it returns
-    ``(logits, state)``: the decode state ``{"unit", "rem", "pos"}`` laid out
-    as the reference's, caches sized for ``state_len`` positions. The
-    reference also returns an aux loss, which only its MoE family makes.
+    ``(logits, state)``: the decode state ``{"unit", "rem", "pos"}`` (and
+    ``"cross"`` for the encoder-decoder) laid out as the reference's, caches
+    sized for ``state_len`` positions. The reference also returns the MoE aux
+    loss, which only training reads.
     """
-    check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, cfg)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name} needs stub frame embeddings (frontend_embeds)")
+        enc_out = encode(params, frontend_embeds, cfg, attention_fn=attention_fn)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    elif frontend_embeds is not None:       # VLM: prepend the patch embeddings
+        x = torch.cat([frontend_embeds.to(x.device, x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     run = dict(attention_fn=attention_fn, recurrence_fn=recurrence_fn,
                make_state=make_state, state_len=state_len, rec_chunk=rec_chunk)
     unit_states = [[] for _ in cfg.attn_pattern]
+    cross_k, cross_v = [], []
     for u in range(cfg.n_pattern_units):
         for i, ltype in enumerate(cfg.attn_pattern):
-            x, st = _apply_layer(_index(params["unit"][i], u), x, cfg, ltype,
-                                 positions, **run)
+            p = _index(params["unit"][i], u)
+            ck = None
+            if enc_out is not None:
+                ck = attn.project_cross_kv(p["xattn"], enc_out, cfg)
+            x, st = _apply_layer(p, x, cfg, ltype, positions, cross_kv=ck, **run)
             unit_states[i].append(st)
+        if ck is not None:      # the reference keeps the unit's last layer's
+            cross_k.append(ck[0])
+            cross_v.append(ck[1])
     rem_states = []
     for i, p in enumerate(params.get("rem", ())):
         x, st = _apply_layer(p, x, cfg, _ltype(cfg, i), positions, **run)
@@ -169,6 +231,8 @@ def forward(
              "rem": tuple(rem_states),
              "pos": torch.full((tokens.shape[0],), S, dtype=torch.int32,
                                device=x.device)}
+    if cross_k:
+        state["cross"] = {"k": torch.stack(cross_k), "v": torch.stack(cross_v)}
     return out, state
 
 
@@ -178,8 +242,10 @@ def forward(
 
 def _apply_layer_decode(p: Dict[str, Any], x: torch.Tensor, st, pos: torch.Tensor,
                         cfg: ArchConfig, ltype: str,
-                        decode_fn: Callable = decode_attention):
-    """One token through one layer; ``st`` is written in place."""
+                        decode_fn: Callable = decode_attention,
+                        cross_kv: Optional[Tuple[torch.Tensor, ...]] = None):
+    """One token through one layer; ``st`` is written in place. ``cross_kv``
+    is the encoder's (keys, values, validity mask) for cross attention."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if ltype == SSM:
         out, st = ssm_mod.ssm_decode(p["ssm"], h, st, cfg)
@@ -190,8 +256,11 @@ def _apply_layer_decode(p: Dict[str, Any], x: torch.Tensor, st, pos: torch.Tenso
         out, st = attn.attention_decode(p["attn"], h, st, pos, cfg, ltype,
                                         decode_fn=decode_fn)
     x = x + out
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.mlp), st
+    if cross_kv is not None:
+        hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
+        x = x + attn.cross_attention_decode(p["xattn"], hx, *cross_kv, cfg,
+                                            decode_fn=decode_fn)
+    return _apply_mlp_part(p, x, cfg, decode=True), st
 
 
 def _empty_layer_state(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dtype,
@@ -209,7 +278,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int,
     ``device`` (default: the current default device, the CPU unless set).
     Recurrent states keep ``h`` in fp32 whatever ``dtype`` is, as the
     reference's do."""
-    check_supported(cfg)
     n_units = cfg.n_pattern_units
 
     def stacked(st):
@@ -221,8 +289,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int,
                  for t in cfg.attn_pattern)
     rem = tuple(_empty_layer_state(cfg, _ltype(cfg, i), batch, seq_len, dtype, device)
                 for i in range(cfg.n_remainder_layers))
-    return {"unit": unit, "rem": rem,
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    state = {"unit": unit, "rem": rem,
+             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.is_encoder_decoder:
+        shape = (n_units, batch, cfg.n_kv_heads, cfg.n_enc_positions,
+                 cfg.resolved_head_dim)
+        state["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return state
 
 
 def decode_step(
@@ -241,15 +315,21 @@ def decode_step(
     ``decode_fn`` is the attention core (kernel wrapper by default, or its
     plain version).
     """
-    check_supported(cfg)
     pos = state["pos"]                                    # (B,) per-slot positions
     x = embed_tokens(params["embed"], token, cfg)
+    cross = state.get("cross")
+    if cfg.is_encoder_decoder:
+        sin = sinusoidal_position_at(pos, cfg.d_model).to(x.dtype)   # (B, D) | (D,)
+        x = x + (sin[:, None] if sin.dim() == 2 else sin[None, None])
+    if cross is not None:     # every encoder position is valid: one mask per step
+        enc_valid = torch.ones((cross["k"].shape[3],), dtype=torch.bool, device=x.device)
     for u in range(cfg.n_pattern_units):
+        ck = (cross["k"][u], cross["v"][u], enc_valid) if cross is not None else None
         for i, ltype in enumerate(cfg.attn_pattern):
             unit_st = state["unit"][i]
             st = type(unit_st)(*(leaf[u] for leaf in unit_st))     # views
             x, _ = _apply_layer_decode(_index(params["unit"][i], u), x, st, pos, cfg,
-                                       ltype, decode_fn)
+                                       ltype, decode_fn, cross_kv=ck)
     new_rem = []
     for i in range(cfg.n_remainder_layers):
         x, st = _apply_layer_decode(params["rem"][i], x, state["rem"][i], pos, cfg,

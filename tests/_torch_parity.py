@@ -34,3 +34,16 @@ def tree_to_torch(tree):
 
 def pages_to_torch(store) -> torch.Tensor:
     return torch.from_numpy(np.array(store, dtype=np.uint8))
+
+
+def frontend(cfg, batch: int, rng) -> dict:
+    """The stub frontend's part of a batch: whisper's frames, or a VLM's
+    patches (fp32, from the numpy generator ``rng``); empty for token-only
+    configs."""
+    if cfg.frontend == "audio_frames":
+        return {"frames": rng.standard_normal(
+            (batch, cfg.n_enc_positions, cfg.d_model)).astype(np.float32)}
+    if cfg.frontend == "vision_patches":
+        return {"patches": rng.standard_normal(
+            (batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)}
+    return {}

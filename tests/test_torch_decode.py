@@ -18,7 +18,7 @@ from repro.models.transformer import (
     init_params as jax_init,
 )
 from repro.serving import state_utils as jsu
-from repro_torch.configs import ARCH_IDS, get_reduced
+from repro_torch.configs import get_reduced
 from repro_torch.core.pages import params_from_numpy
 from repro_torch.core.tree import flatten_with_keys
 from repro_torch.models import layers as tlayers
@@ -30,12 +30,15 @@ from repro_torch.models.transformer import (
     init_params,
 )
 from repro_torch.serving import state_utils as tsu
-from tests._torch_parity import to_f32, to_torch
+from tests._torch_parity import frontend, to_f32, to_torch
 
 PARITY_TOL = 1e-4
 DECODE_TOL = 2e-3
 DENSE = ["qwen3_1_7b", "gemma2_27b", "h2o_danube3_4b", "qwen1_5_0_5b", "fnbench_tiny"]
 RECURRENT = ["falcon_mamba_7b", "recurrentgemma_2b"]   # tests/test_torch_recurrent.py
+# MoE (reduced: capacity factor 4.0, so no assignment is dropped), the
+# encoder-decoder and the VLM, fed stub frames / patches
+FAMILIES = ["granite_moe_3b_a800m", "moonshot_v1_16b_a3b", "whisper_small", "internvl2_1b"]
 KEY = jax.random.PRNGKey(1)
 
 
@@ -83,27 +86,58 @@ def test_prefill_state_and_decode_steps_match_jax(arch):
         np.testing.assert_allclose(a, b, atol=PARITY_TOL, rtol=PARITY_TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_incremental_decode_matches_own_forward(arch):
     """tests/test_decode_consistency.py:24 on the port: S+K exceeds the reduced
-    window (16), so the local rings wrap."""
+    window (16), so the local rings wrap; whisper's decoder attends to its
+    frames, internvl2's positions continue after its patches."""
     cfg = get_reduced(arch)
     params = init_params(torch.Generator().manual_seed(1), cfg, torch.float32)
     B, S, K = 2, 20, 5
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B, S + K)))
-    full = forward(params, toks, cfg)
-    _, state = forward(params, toks[:, :S], cfg, make_state=True, state_len=S + K)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + K)))
+    fe = {k: torch.from_numpy(v) for k, v in frontend(cfg, B, rng).items()}
+    fe = next(iter(fe.values()), None)
+    full = forward(params, toks, cfg, frontend_embeds=fe)
+    _, state = forward(params, toks[:, :S], cfg, frontend_embeds=fe, make_state=True,
+                       state_len=full.shape[1])
     for i in range(K):
         logits, state = decode_step(params, state, toks[:, S + i: S + i + 1], cfg)
-    err = float((logits - full[:, S + K - 1]).abs().max())
+    err = float((logits - full[:, -1]).abs().max())
     assert err < DECODE_TOL, f"{arch}: decode diverged from forward by {err}"
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(DENSE) - set(RECURRENT)))
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="Other architectures"):
-        init_decode_state(get_reduced(arch), 1, 8, torch.float32)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_new_families_prefill_state_and_decode_steps_match_jax(arch):
+    """The prefill's state and K decode steps against the reference's, on
+    the same weights and stub embeddings (whisper's cross keys compared in
+    the reference's layout)."""
+    jcfg, cfg = jax_reduced(arch), get_reduced(arch)
+    params = jax_init(KEY, jcfg, jnp.float32)
+    tparams = _port_params(params)
+    B, S, K = 2, 14, 5
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + K)).astype(np.int32)
+    fe = next(iter(frontend(cfg, B, rng).values()), None)
+    state_len = S + K + (cfg.n_frontend_tokens if fe is not None and
+                         not cfg.is_encoder_decoder else 0)
+    _, _, jst = jax_forward(params, jnp.asarray(toks[:, :S]), jcfg, make_state=True,
+                            frontend_embeds=None if fe is None else jnp.asarray(fe),
+                            state_len=state_len)
+    _, tst = forward(tparams, torch.from_numpy(toks[:, :S]), cfg, make_state=True,
+                     frontend_embeds=None if fe is None else torch.from_numpy(fe),
+                     state_len=state_len)
+    for i in range(K):
+        tok = toks[:, S + i: S + i + 1]
+        jlog, jst = jax_decode_step(params, jst, jnp.asarray(tok), jcfg)
+        tlog, tst = decode_step(tparams, tst, torch.from_numpy(tok), cfg)
+        np.testing.assert_allclose(to_f32(tlog), to_f32(jlog), atol=PARITY_TOL,
+                                   rtol=PARITY_TOL)
+    for (key, a), b in zip(flatten_with_keys(tst), _leaves(jst)):
+        a = to_f32(a)
+        if key.startswith("['cross']"):
+            a = a.swapaxes(2, 3)            # the reference keeps (.., Senc, Hkv, hd)
+        np.testing.assert_allclose(a, b, atol=PARITY_TOL, rtol=PARITY_TOL, err_msg=key)
 
 
 def test_decode_positions_advance_per_slot():

@@ -36,6 +36,11 @@ FLASH_ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap): tests/test_kernels
     (1, 16, 8, 2048, 128, True, None, None),      # qwen3-1.7b prefill
     (2, 8, 2, 333, 128, True, None, 50.0),
     (1, 4, 2, 517, 256, True, 200, None),
+    (1, 32, 8, 4608, 120, True, 4096, None),      # h2o-danube3-4b: d=120, g=4, window
+    (2, 8, 2, 300, 120, True, 100, 30.0),
+    (1, 24, 8, 2048, 64, True, None, None),       # granite-moe-3b: g=3
+    (1, 14, 2, 320, 64, True, None, None),        # internvl2-1b: g=7, 256 patches + 64
+    (1, 12, 12, 1500, 64, False, None, None),     # whisper-small encoder, non-causal
 ]
 DECODE_ROWS = [  # (B, H, Hkv, S, d, softcap): tests/test_kernels.py:50-54
     (2, 4, 2, 300, 64, None),
@@ -44,6 +49,11 @@ DECODE_ROWS = [  # (B, H, Hkv, S, d, softcap): tests/test_kernels.py:50-54
     (4, 16, 8, 4096, 128, None),                  # qwen3-1.7b decode, 4 slots
     (4, 10, 1, 2048, 256, None),                  # recurrentgemma-2b decode, 4 slots
     (2, 20, 2, 300, 256, 50.0),
+    (4, 32, 8, 4096, 120, None),                  # h2o-danube3-4b decode: d=120, g=4
+    (2, 21, 3, 300, 120, 50.0),                   # d=120, g=7
+    (4, 24, 8, 4096, 64, None),                   # granite-moe-3b decode: g=3
+    (2, 14, 2, 2048, 64, None),                   # internvl2-1b decode: g=7
+    (2, 12, 12, 1500, 64, None),                  # whisper-small cross attention
 ]
 RECURRENCE_ROWS = [  # (B, S, C): tests/test_kernels.py:68-70, then the model shapes
     (2, 100, 64), (1, 256, 32), (3, 17, 130), (1, 64, 2048),
@@ -154,7 +164,9 @@ def test_flash_attention_kernel_ragged_and_all_masked(dtype):
     for (B, H, Hkv, Sq, Sk, d, causal, window) in [
             (1, 4, 2, 100, 150, 64, True, None), (1, 4, 2, 150, 100, 64, True, None),
             (1, 2, 2, 70, 70, 64, True, 0), (1, 2, 1, 90, 130, 256, True, 0),
-            (2, 4, 4, 33, 200, 128, False, 50)]:
+            (2, 4, 4, 33, 200, 128, False, 50),
+            (1, 12, 12, 64, 1500, 64, False, None),    # whisper cross prefill
+            (1, 4, 2, 70, 200, 120, False, None), (1, 4, 1, 150, 100, 120, True, 0)]:
         q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(dev)
                    for shape in ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
         out = flash_attention(q, k, v, causal=causal, window=window)
@@ -166,8 +178,8 @@ def test_flash_attention_kernel_ragged_and_all_masked(dtype):
 
 
 def _decode_masks(rng, B, S):
-    """An (S,) mask, a (B, S) ring mask with a window, and one with an
-    all-invalid row."""
+    """An (S,) mask, a (B, S) ring mask with a window, one with an
+    all-invalid row, and an all-valid one (cross attention)."""
     shared = rng.random(S) < 0.7
     shared[0] = True
     k_pos = np.full((B, S), -1)
@@ -179,7 +191,7 @@ def _decode_masks(rng, B, S):
     ring = (k_pos >= 0) & (k_pos <= now) & (now - k_pos < max(S // 3, 1))
     empty = ring.copy()
     empty[-1] = False
-    return [shared, ring, empty]
+    return [shared, ring, empty, np.ones((B, S), bool)]
 
 
 @pytest.mark.gpu
@@ -233,7 +245,8 @@ def test_decode_attention_live_extent_and_any_split_count(dtype):
     rng = np.random.default_rng(12)
     tol = TOL[dtype]
     for (B, H, Hkv, S, d, cap) in [(4, 16, 8, 4096, 128, None), (4, 10, 1, 2048, 256, None),
-                                   (2, 4, 2, 1000, 64, 30.0)]:
+                                   (2, 4, 2, 1000, 64, 30.0), (4, 32, 8, 4096, 120, None),
+                                   (2, 6, 2, 1000, 64, None), (2, 14, 2, 1000, 64, None)]:
         q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                    .to(dtype).to(dev)
                    for shape in ((B, H, d), (B, Hkv, S, d), (B, Hkv, S, d)))

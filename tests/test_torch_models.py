@@ -229,15 +229,3 @@ def test_port_init_has_the_reference_layout():
     assert all(b.dtype == torch.bfloat16 for b in tl)
     logits = torch_forward(tparams, torch.zeros((1, 8), dtype=torch.int64), cfg)
     assert logits.shape == (1, 8, 1024) and torch.isfinite(logits).all()
-
-
-def test_unported_families_raise():
-    cfg = TorchArchConfig(name="whisper", family="audio", n_layers=2, d_model=64,
-                          n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=256,
-                          is_encoder_decoder=True, n_enc_layers=2,
-                          frontend="audio_frames")
-    with pytest.raises(NotImplementedError, match="Other architectures"):
-        init_params(torch.Generator().manual_seed(0), cfg)
-    moe = dataclasses.replace(_torch_cfg(QKV_BIAS_CFG), n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError):
-        torch_forward({}, torch.zeros((1, 4), dtype=torch.int64), moe)
