@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's HotSwap cold-start and serving paths on the card, for the
-dense, recurrent, MoE, encoder-decoder and VLM families, and checks them:
+Drives the port's HotSwap cold-start, serving and training paths on the
+card, for the dense, recurrent, MoE, encoder-decoder and VLM families, and
+checks them:
 
 1. environment: card name and power limit, torch and CUDA versions;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a),
@@ -82,11 +83,31 @@ dense, recurrent, MoE, encoder-decoder and VLM families, and checks them:
 13. h2o-danube3-4b at full width and depth (24 layers, head dim 120, window
    4096, bf16, 7.9 GB): restored under BULK, a prefill of 4608 tokens that
    wraps every layer's ring, 8 decode steps through it, held against the full
-   forward and the plain path within 0.125 of each logit.
+   forward and the plain path within 0.125 of each logit;
+3g. (run after phase 3) gradients: the flash_attention backward kernels
+   (fp32) against torch.autograd.grad through the plain version at the
+   training shapes of qwen1.5-0.5b, qwen3-1.7b, recurrentgemma's local layer,
+   gemma2-27b (window 4096, softcap 50), whisper's encoder and cross
+   attention and h2o-danube3-4b (d=120), and the diag_recurrence backward
+   (the kernel run backwards in time) on both routes at falcon-mamba's and
+   the RG-LRU's shapes against autograd through the plain loop, each within
+   1e-4 of the largest |gradient|;
+14. training qwen1.5-0.5b at full width and depth (fp32, B=4, S=1024,
+   remat=unit) for 10 steps through the training launcher and its
+   supervisor: the loss falls, each step runs 24 flash forwards, 24
+   recomputes and 24 backward launches; step time, tokens/s, and one step's
+   device busy share from the profiler;
+15. rollback: qwen1.5-0.5b at full width and 2 layers (B=2, S=256), 8 steps,
+   a checkpoint every 2 steps and injected failures at steps 3 and 6, ends
+   within 1e-6 of an uninterrupted run;
+16. training recurrentgemma-2b at full width and one pattern unit (B=1,
+   S=2560, past the 2048 window), 3 steps: both kernels' backward;
+17. export: qwen1.5-0.5b's prefill_logits (B=1, S=64, bf16) through
+   torch.export to bytes and back, its logits bitwise equal to eager.
 
-The launch counters are set to 0 just before each driven path (phases 4, 5,
-7-13) and read just after; a kernel the path did not launch fails the run;
-falcon-mamba's path must run diag_recurrence on its sequential route and
+Each phase prints its seconds. The launch counters are set to 0 just before
+each driven path (phases 4, 5, 7-14, 16) and read just after; a kernel the
+path did not launch fails the run; falcon-mamba's path must run diag_recurrence on its sequential route and
 recurrentgemma's on its chunked route. Each phase frees its models before
 the next. Any failed check exits non-zero. The last line is the JSON device
 record.
@@ -96,6 +117,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -175,6 +197,26 @@ H2O_ARCH, H2O_SEQ, H2O_DECODE = "h2o_danube3_4b", 4608, 8   # prefill crosses th
 BF16_LOGIT_BOUND = 0.125
 
 
+# the flash_attention backward's check (fp32, B=1): label -> (H, Hkv, Sq, Sk, d,
+# causal, window, softcap), each config's training shape
+FLASH_GRAD = {
+    "qwen1.5-0.5b": (16, 16, 1024, 1024, 64, True, None, None),
+    "qwen3-1.7b": (16, 8, 1024, 1024, 128, True, None, None),
+    "recurrentgemma local": (10, 1, 2560, 2560, 256, True, 2048, None),
+    "gemma2-27b": (32, 16, 4608, 4608, 128, True, 4096, 50.0),
+    "whisper encoder": (12, 12, 1500, 1500, 64, False, None, None),
+    "whisper cross": (12, 12, 64, 1500, 64, False, None, None),
+    "h2o-danube3-4b": (32, 8, 4608, 4608, 120, True, 4096, None),
+}
+RECURRENCE_GRAD = {"falcon": (1, 256, 131072), "recurrentgemma": (1, 2560, 2560)}
+GRAD_TOL = 1e-4            # of the largest |gradient| in each tensor
+TRAIN_SHAPE, TRAIN_STEPS = (4, 1024), 10          # qwen1.5-0.5b training: B, S; steps
+TRAIN_LR = 3e-3            # peak rate: 3e-5 .. 3e-4 over the 10 warm-up steps
+ROLLBACK_SHAPE, ROLLBACK_STEPS = (2, 256), 8
+ROLLBACK_TOL = 1e-6        # tests/test_serving_ft.py:107
+GRIFFIN_TRAIN, GRIFFIN_STEPS = (1, 2560), 3       # recurrentgemma-2b training: B, S
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -196,17 +238,26 @@ def log(msg: str) -> None:
 def kernel_fns() -> dict:
     from repro_torch.kernels import (decode_attention, diag_recurrence,
                                      flash_attention, page_gather)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_backward
     return {"page_gather": page_gather, "flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward,
             "decode_attention": decode_attention, "diag_recurrence": diag_recurrence}
 
 
+#: the CUDA source each kernel wrapper's library is built from
+SOURCES = {"page_gather": "page_gather", "flash_attention": "flash_attention",
+           "flash_attention_backward": "flash_attention",
+           "decode_attention": "decode_attention", "diag_recurrence": "diag_recurrence"}
+
+
 def reset_counts(kernels) -> None:
-    """Set the launch counters of ``kernels`` to 0 (flash_attention's count per
-    route too)."""
+    """Set the launch counters of ``kernels`` to 0 (the counts per route and
+    per pass too)."""
     for k in kernels:
         k.launches = 0
-        if hasattr(k, "launches_by_route"):
-            k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
+        for table in ("launches_by_route", "launches_by_pass"):
+            if hasattr(k, table):
+                setattr(k, table, dict.fromkeys(getattr(k, table), 0))
 
 
 def expect_route(tag: str, path: str, route: str, kernel: str = "flash_attention") -> dict:
@@ -232,6 +283,14 @@ def free_device(tag: str) -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     torch.cuda.reset_peak_memory_stats()
     return peak
+
+
+def timed(tag: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, printing the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -284,8 +343,9 @@ def _disassembler():
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build_all(list(kernel_fns()))
-    log(f"[2] built {' + '.join(kernel_fns())} in {time.perf_counter() - t0:.2f} s")
+    names = sorted(set(SOURCES.values()))
+    libs = build.build_all(names)
+    log(f"[2] built {' + '.join(names)} in {time.perf_counter() - t0:.2f} s")
     for name, text in sorted(build.BUILD_LOG.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1592,6 +1652,325 @@ def phase_h2o(device, tag: str = "13") -> dict:
 # 6. kernel times
 # ---------------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------------
+# 3g, 14-17: gradients, training, rollback, export
+# ---------------------------------------------------------------------------------
+
+def check_gradients(device, errs: dict) -> None:
+    """The flash_attention backward kernels (fp32) against torch.autograd.grad
+    through flash_attention_plain at the training shapes (B=1), dq, dk, dv
+    each within GRAD_TOL of its largest |entry|; the diag_recurrence backward
+    (the kernel run backwards in time, forced onto each route) against
+    autograd through the plain loop at falcon-mamba's SSM chunk and
+    recurrentgemma's RG-LRU prefill, within GRAD_TOL of each gradient's
+    largest |entry|."""
+    import torch
+    from repro_torch.kernels import diag_recurrence, flash_attention
+    from repro_torch.kernels.diag_recurrence import diag_recurrence_plain
+    from repro_torch.kernels.diag_recurrence.ops import (RecurrencePlan,
+                                                         diag_recurrence_backward,
+                                                         plan_recurrence, run_plan)
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_backward,
+                                                         flash_attention_backward_plain)
+    gen = torch.Generator(device=device).manual_seed(31)
+    worst = 0.0
+    for label, (H, Hkv, Sq, Sk, d, causal, window, cap) in FLASH_GRAD.items():
+        q = torch.randn((1, H, Sq, d), generator=gen, device=device).requires_grad_(True)
+        k, v = (torch.randn((1, Hkv, Sk, d), generator=gen, device=device)
+                .requires_grad_(True) for _ in range(2))
+        dout = torch.randn(q.shape, generator=gen, device=device)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        before = flash_attention_backward.launches
+        out = flash_attention(q, k, v, **opts)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        sync(device)
+        expect(flash_attention_backward.launches == before + 1,
+               f"the {label} gradient did not launch the backward kernel")
+        ref = flash_attention_backward_plain(q, k, v, dout, **opts)
+        rel = []
+        for name, g, r in zip("qkv", got, ref):
+            scale = float(r.abs().max())
+            err = float((g - r).abs().max())
+            expect(bool(torch.isfinite(g).all()) and err <= GRAD_TOL * scale,
+                   f"flash backward d{name} at {label}: max |err| {err:.3e} against "
+                   f"{GRAD_TOL} x {scale:.3e}")
+            rel.append(err / scale)
+        worst = max(worst, *rel)
+        log(f"[3g] flash backward {label} H{H}/{Hkv} Sq{Sq} Sk{Sk} d{d} causal={causal} "
+            f"window={window} softcap={cap}: max |err| / max |g| dq {rel[0]:.3e} dk "
+            f"{rel[1]:.3e} dv {rel[2]:.3e} (bar {GRAD_TOL})")
+        del q, k, v, dout, out, got, ref
+        torch.cuda.empty_cache()
+    errs["flash_attention_backward"] = worst
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    worst = 0.0
+    for label, (B, S, C) in RECURRENCE_GRAD.items():
+        a = (torch.rand((B, S, C), generator=gen, device=device) * 0.5 + 0.5)
+        b = torch.randn((B, S, C), generator=gen, device=device)
+        h0 = torch.randn((B, C), generator=gen, device=device)
+        g_all = torch.randn((B, S, C), generator=gen, device=device)
+        g_fin = torch.randn((B, C), generator=gen, device=device)
+        leaves = [t.requires_grad_(True) for t in (a, b, h0)]
+        r_all, r_fin = diag_recurrence_plain(*leaves)
+        ref = torch.autograd.grad((r_all, r_fin), leaves, (g_all, g_fin))
+        del r_all, r_fin
+        with torch.no_grad():
+            h_all, _ = diag_recurrence(a, b, h0)
+        planned = plan_recurrence(B, S, C, n_sms)
+        plans = {"sequential": RecurrencePlan("sequential", S, 1),
+                 "chunked": (planned if planned.route == "chunked"
+                             else RecurrencePlan("chunked", 64, -(-S // 64)))}
+        for route, plan in plans.items():
+            before = dict(diag_recurrence.launches_by_route)
+            with torch.no_grad():
+                got = diag_recurrence_backward(
+                    a, h0, h_all, g_all, g_fin,
+                    lambda x, y, z, plan=plan: run_plan(x, y, z, plan, "backward"))
+            sync(device)
+            expect(diag_recurrence.launches_by_route[route] == before[route] + 1,
+                   f"the {label} backward did not run on the {route} route")
+            rel = []
+            for name, g, r in zip(("a", "b", "h0"), got, ref):
+                scale = float(r.abs().max())
+                err = float((g - r).abs().max())
+                expect(err <= GRAD_TOL * scale,
+                       f"diag_recurrence backward d{name} at {label} ({route}): max "
+                       f"|err| {err:.3e} against {GRAD_TOL} x {scale:.3e}")
+                rel.append(err / scale)
+            worst = max(worst, *rel)
+            log(f"[3g] diag_recurrence backward {label} B{B} S{S} C{C} on {route} (chunk "
+                f"{plan.chunk}): max |err| / max |g| da {rel[0]:.3e} db {rel[1]:.3e} "
+                f"dh0 {rel[2]:.3e} (planner: {planned.route})")
+        del a, b, h0, g_all, g_fin, leaves, ref, h_all, got
+        torch.cuda.empty_cache()
+    errs["diag_recurrence:backward"] = worst
+
+
+def profile_step(step_fn, params, opt_state, batch, step: int, tag: str) -> dict:
+    """torch.profiler over one training step: device busy time (the union of
+    the kernels' intervals) against the step's wall time, and the kernels
+    that took the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import torch
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch, step)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, kernels = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not spans:
+        log(f"[{tag}] step profile: the profiler saw no kernels; busy share not measured")
+        return {"profile": "not measured"}
+    busy, end = 0.0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    busy /= 1e3
+    log(f"[{tag}] step profile: wall {wall:.3f} ms under the profiler, device busy "
+        f"{busy:.3f} ms (busy share {busy / wall:.4f}, idle share {1 - busy / wall:.4f}), "
+        f"{len(spans)} kernels")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[{tag}]   {ms:.4f} ms  {name[:110]}")
+    return {"profile_wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+            "idle_share": 1 - busy / wall, "kernels_per_step": len(spans)}
+
+
+def phase_train_qwen(device, tmp: str, tag: str = "14") -> dict:
+    """qwen1.5-0.5b at full width and depth, fp32, B=4, S=1024, remat=unit:
+    TRAIN_STEPS steps through the training launcher (supervisor, anchor and
+    final checkpoints; a peak rate of TRAIN_LR, so the launcher's 100-step
+    warm-up reaches 3e-4 at the last step); the loss must fall and each step must run 24 flash
+    forwards, 24 recomputes and 24 backward launches; then one profiled step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline, batch_to_torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_backward
+    from repro_torch.launch import train
+    from repro_torch.models.api import make_train_step
+    kernels = {k: v for k, v in kernel_fns().items()
+               if k in ("flash_attention", "flash_attention_backward")}
+    B, S = TRAIN_SHAPE
+    n_layers = get_config("qwen1_5_0_5b").n_layers
+    reset_counts(kernels.values())
+    run = train.main(["--arch", "qwen1_5_0_5b", "--steps", str(TRAIN_STEPS), "--batch",
+                      str(B), "--seq", str(S), "--remat", "unit", "--lr", str(TRAIN_LR),
+                      "--device", str(device),
+                      "--ckpt-dir", os.path.join(tmp, "train_ckpt"),
+                      "--log", os.path.join(tmp, "train_log.jsonl")])
+    hist = run["history"]
+    flash = kernels["flash_attention"]
+    per_step = {"forward": flash.launches_by_pass["forward"] / TRAIN_STEPS,
+                "recompute": flash.launches_by_pass["recompute"] / TRAIN_STEPS,
+                "backward": flash_attention_backward.launches / TRAIN_STEPS}
+    counts = {k: v.launches for k, v in kernels.items()}
+    log(f"[{tag}] flash_attention launches per step: {per_step} (want {n_layers} each); "
+        f"by route {flash.launches_by_route}")
+    expect(per_step == dict.fromkeys(per_step, n_layers),
+           f"qwen1.5 training ran {per_step} flash launches a step, not {n_layers} each")
+    losses = [h["loss"] for h in hist]
+    expect(len(hist) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+           f"qwen1.5 training history: {losses}")
+    expect(losses[-1] < losses[0], f"qwen1.5 training loss did not fall: {losses}")
+    times = [h["seconds"] for h in hist[1:]]
+    step_s = statistics.median(times)
+    log(f"[{tag}] qwen1.5-0.5b fp32 B{B} S{S} remat=unit, {TRAIN_STEPS} steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step times (s, after the first) "
+        f"{[round(t, 4) for t in times]}; median {step_s:.4f} s, {B * S / step_s:.1f} "
+        f"tokens/s; first step {hist[0]['seconds']:.3f} s")
+    data = DataConfig(global_batch=B, seq_len=S, seed=0)
+    cfg = get_config("qwen1_5_0_5b")
+    batch = batch_to_torch(SyntheticTokenPipeline.batch_at(cfg, data, TRAIN_STEPS), device)
+    prof = profile_step(make_train_step(cfg, peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                                        remat="unit"),
+                        run["params"], run["opt_state"], batch, TRAIN_STEPS, tag)
+    return {"counts": counts, "losses": losses, "median_step_s": step_s,
+            "tokens_per_s": B * S / step_s, "first_step_s": hist[0]["seconds"],
+            "flash_per_step": per_step, **prof}
+
+
+def phase_rollback(device, tmp: str, tag: str = "15") -> dict:
+    """qwen1.5-0.5b at full width and 2 layers, B=2, S=256: ROLLBACK_STEPS
+    steps under the supervisor with a checkpoint every 2 steps (async saves)
+    and InjectedFailure at steps 3 and 6, against an uninterrupted run: the
+    final parameters within ROLLBACK_TOL (tests/test_serving_ft.py:107)."""
+    import torch
+    from repro_torch.checkpoint import CheckpointConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline, batch_to_torch
+    from repro_torch.models.api import make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import InjectedFailure, SupervisorConfig, TrainSupervisor
+    cfg = dataclasses.replace(get_config("qwen1_5_0_5b"), n_layers=2)
+    B, S = ROLLBACK_SHAPE
+    data = DataConfig(global_batch=B, seq_len=S, seed=5)
+    step_fn = make_train_step(cfg, remat="none", total_steps=20)
+
+    def run(fail: bool):
+        ckdir = os.path.join(tmp, f"rollback_{int(fail)}")
+        sup = TrainSupervisor(
+            SupervisorConfig(checkpoint_every=2, checkpoint=CheckpointConfig(ckdir)),
+            step_fn,
+            lambda s: batch_to_torch(SyntheticTokenPipeline.batch_at(cfg, data, s), device))
+        p = init_params(torch.Generator(device=device).manual_seed(9), cfg, torch.float32)
+        o = adamw_init(p)
+        fails = {3: InjectedFailure("node died"),
+                 6: InjectedFailure("nan storm")} if fail else None
+        t0 = time.perf_counter()
+        p, o, hist = sup.run(p, o, 0, ROLLBACK_STEPS, fail_at=fails)
+        sync(device)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        return p, sup.restores, hist, time.perf_counter() - t0
+
+    clean, r0, h0, t_clean = run(False)
+    faulty, r1, h1, t_faulty = run(True)
+    diff = max(float((a - b).abs().max()) for a, b in zip(leaves(clean), leaves(faulty)))
+    log(f"[{tag}] rollback: {r1} restores; final params max |diff| against the "
+        f"uninterrupted run {diff:.3e} (bar {ROLLBACK_TOL}); final loss {h0[-1]['loss']:.6f}"
+        f" / {h1[-1]['loss']:.6f}; {t_clean:.2f} s clean, {t_faulty:.2f} s with failures")
+    expect(r0 == 0 and r1 == 2, f"rollback restores {r0} / {r1}, want 0 / 2")
+    expect(diff <= ROLLBACK_TOL, f"rollback final params differ by {diff:.3e}")
+    return {"restores": r1, "max_abs_diff": diff, "seconds_clean": t_clean,
+            "seconds_with_failures": t_faulty}
+
+
+def phase_train_griffin(device, tag: str = "16") -> dict:
+    """recurrentgemma-2b at full width and one pattern unit (2 RG-LRU layers
+    and one local attention layer), fp32, B=1, S=2560 (past the 2048
+    window), GRIFFIN_STEPS steps: the step runs both kernels' backward."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline, batch_to_torch
+    from repro_torch.models.api import make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    cfg = get_config("recurrentgemma_2b")
+    cfg = dataclasses.replace(cfg, n_layers=len(cfg.attn_pattern))
+    kernels = {k: v for k, v in kernel_fns().items()
+               if k in ("flash_attention", "flash_attention_backward", "diag_recurrence")}
+    B, S = GRIFFIN_TRAIN
+    data = DataConfig(global_batch=B, seq_len=S, seed=2)
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg, torch.float32)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, remat="none", total_steps=GRIFFIN_STEPS)
+    reset_counts(kernels.values())
+    losses, times = [], []
+    for step in range(GRIFFIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt,
+                                 batch_to_torch(SyntheticTokenPipeline.batch_at(
+                                     cfg, data, step), device), step)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    rec, flash = kernels["diag_recurrence"], kernels["flash_attention"]
+    counts = {k: v.launches for k, v in kernels.items()}
+    log(f"[{tag}] recurrentgemma-2b 1 unit fp32 B{B} S{S}: losses {losses}, step times "
+        f"{[round(t, 4) for t in times]} s; diag_recurrence by route "
+        f"{rec.launches_by_route}, by pass {rec.launches_by_pass}; flash forward "
+        f"{flash.launches}, backward {counts['flash_attention_backward']}")
+    expect(all(map(math.isfinite, losses)), f"recurrentgemma losses {losses}")
+    expect(rec.launches_by_pass["backward"] > 0 and counts["flash_attention_backward"] > 0,
+           "recurrentgemma's step did not run both kernels' backward")
+    return {"counts": counts, "losses": losses, "step_s": times,
+            "diag_routes": dict(rec.launches_by_route),
+            "diag_passes": dict(rec.launches_by_pass)}
+
+
+def phase_aot(device, tag: str = "17") -> dict:
+    """qwen1.5-0.5b's prefill_logits at B=1, S=64 (bf16, quickstart's shape)
+    exported with torch.export, saved to bytes and loaded: the loaded
+    program's logits bitwise equal to eager; blob bytes and the export, load
+    and first-call seconds beside the eager warm-up forward."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.aot import (deserialize_executables, executables_nbytes,
+                                      serialize_executables)
+    from repro_torch.models.transformer import forward, init_params
+    cfg = get_config("qwen1_5_0_5b")
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                         torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 64), device=device,
+                           generator=torch.Generator(device=device).manual_seed(3))
+
+    def prefill_logits(p, toks):
+        return forward(p, toks, cfg, logits_slice=1)[:, -1]
+
+    t0 = time.perf_counter()
+    eager = prefill_logits(params, tokens)
+    sync(device)
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blobs = serialize_executables({"prefill_logits": prefill_logits},
+                                  {"prefill_logits": (params, tokens)})
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = deserialize_executables(blobs)["prefill_logits"]
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = run(params, tokens)
+    sync(device)
+    t_first = time.perf_counter() - t0
+    equal = torch.equal(out, eager)
+    log(f"[{tag}] qwen1.5-0.5b prefill_logits B1 S64 bf16 exported: "
+        f"{executables_nbytes(blobs)} bytes; export {t_export:.3f} s, load {t_load:.3f} s, "
+        f"first call {t_first:.4f} s; eager warm-up forward {t_warm:.4f} s; logits "
+        f"bitwise equal: {equal}")
+    expect(equal, "the loaded program's logits differ from eager")
+    return {"blob_bytes": executables_nbytes(blobs), "export_s": t_export,
+            "load_s": t_load, "first_call_s": t_first, "warmup_forward_s": t_warm}
+
+
 def _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, label: str):
     """Times flash_attention at one shape beside its plain version and SDPA
     (given the explicit mask where a window cuts keys), with the bound from
@@ -1630,7 +2009,8 @@ def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
                 path_routes: dict, decode_inputs: dict) -> list:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention, diag_recurrence, page_gather
+    from repro_torch.kernels import (decode_attention, diag_recurrence, flash_attention,
+                                     page_gather)
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.diag_recurrence import diag_recurrence_plain
     from repro_torch.kernels.diag_recurrence.ops import plan_recurrence
@@ -1717,6 +2097,46 @@ def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
     flash_row(torch.float32, (B, H, Hkv, S, S, d), False, None, "whisper",
               "whisper encoder, non-causal")
     flash_row(torch.float32, FLASH_CROSS, False, None, "whisper", "whisper cross prefill")
+
+    # the flash_attention backward (fp32) at qwen1.5-0.5b's training shape,
+    # from a forward that kept its rows' lse, beside the plain version
+    # (autograd through it, forward included) and SDPA's backward alone
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_backward,
+                                                         flash_attention_backward_plain)
+    from repro_torch.kernels.sweep import flash_backward_work
+    B, S = TRAIN_SHAPE
+    H, Hkv, _, _, d, causal, window, cap = FLASH_GRAD["qwen1.5-0.5b"]
+    q = torch.randn((B, H, S, d), generator=gen, device=device)
+    k, v = (torch.randn((B, Hkv, S, d), generator=gen, device=device) for _ in range(2))
+    dout = torch.randn(q.shape, generator=gen, device=device)
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, cap,
+                                                     d ** -0.5, True)
+    t_k = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout, causal=causal))
+    t_p = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, dout, causal=causal),
+                  iters=5, per=2, warmup=1)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        o_l = F.scaled_dot_product_attention(*qkv, is_causal=causal)
+    t_l = cuda_ms(lambda: torch.autograd.grad(o_l, qkv, dout, retain_graph=True))
+    t_k2 = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout, causal=causal))
+    moved, ops = flash_backward_work(q, k, causal, window)
+    bound, by = bound_ms(moved, ops, torch.float32)
+    log(f"[6] flash_attention backward fp32 B{B} H{H}/{Hkv} S{S} d{d} causal: kernel "
+        f"{t_k:.4f} / {t_k2:.4f} ms ({ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{bound / t_k:.4f} of the bound), plain (autograd through the plain forward) "
+        f"{t_p:.4f} ms, sdpa backward {t_l:.4f} ms, bound {bound:.5f} ms ({by})")
+    rows.append({"name": "flash_attention_backward", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/models/attention.py:111",
+                 "shape": f"qwen1.5 training fp32 B{B} H{H}/{Hkv} S{S} d{d} causal "
+                          f"(no TPU kernel: the reference differentiates jnp attention)",
+                 "launches": launches["flash_attention_backward"],
+                 "max_abs_err": errs["flash_attention_backward"], "ms": t_k,
+                 "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": t_l})
+    del q, k, v, dout, out, lse, qkv, o_l
+    qh = torch.randn((1, 16, 64, 64), generator=gen, device=device).to(torch.bfloat16)
+    log(f"[6] flash_attention wrapper host time per call, qwen1.5 prefill S=64 bf16 (no "
+        f"gradient): {host_us(lambda: flash_attention(qh, qh, qh)):.2f} us")
 
     # decode_attention at each path's decode (qwen3-1.7b, recurrentgemma-2b,
     # granite-moe's g=3, internvl2's g=7, whisper's cross attention over 1500
@@ -1835,47 +2255,63 @@ def main() -> int:
     sys.path.insert(0, src)
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    card = phase_environment()
-    phase_build()
+    card = timed("1", phase_environment)
+    timed("2", phase_build)
     errs: dict = {}
+    t0 = time.perf_counter()
     cfg, qmanager, qimg, qparams = phase_qwen_setup(device)
     check_page_gather(qimg.store, device, errs)
     check_flash(device, errs)
     check_decode(device, errs)
     check_diag_recurrence(device, errs)
+    log(f"[3] phase {time.perf_counter() - t0:.1f} s")
     peaks = [free_device("3")]
+    timed("3g", check_gradients, device, errs)
+    peaks.append(free_device("3g"))
     path_counts: dict = {}           # each driven path's launches, by path
     with tempfile.TemporaryDirectory(prefix="repro-torch-smoke-") as tmp:
-        path_counts["quickstart"] = phase_quickstart(device, tmp)
-        path_counts["qwen1.5"] = phase_qwen(cfg, qmanager, qimg, qparams, device)
+        path_counts["quickstart"] = timed("4", phase_quickstart, device, tmp)
+        path_counts["qwen1.5"] = timed("5", phase_qwen, cfg, qmanager, qimg, qparams,
+                                       device)
         del qparams
         peaks.append(free_device("5"))
-        serving = phase_serving(device, "qwen3_1_7b", "7")
+        serving = timed("7", phase_serving, device, "qwen3_1_7b", "7")
         path_counts["qwen3"] = serving.pop("counts")
         peaks.append(free_device("7"))
-        qwen_cold = phase_coldstart(cfg, qmanager, tmp, "6", "qwen", baseline_rounds=3)
+        qwen_cold = timed("6", phase_coldstart, cfg, qmanager, tmp, "6", "qwen",
+                          baseline_rounds=3)
         peaks.append(free_device("6"))
-        falcon = phase_falcon(device, tmp)
+        falcon = timed("8", phase_falcon, device, tmp)
         path_counts["falcon"] = falcon.pop("counts")
         peaks.append(free_device("8"))
-        griffin = phase_serving(device, "recurrentgemma_2b", "9")
+        griffin = timed("9", phase_serving, device, "recurrentgemma_2b", "9")
         path_counts["recurrentgemma"] = griffin.pop("counts")
         peaks.append(free_device("9"))
-        granite = phase_serving(device, "granite_moe_3b_a800m", "10")
+        granite = timed("10", phase_serving, device, "granite_moe_3b_a800m", "10")
         path_counts["granite"] = granite.pop("counts")
         peaks.append(free_device("10"))
-        moonshot = phase_moonshot(device)
+        moonshot = timed("11", phase_moonshot, device)
         path_counts["moonshot"] = moonshot.pop("counts")
         peaks.append(free_device("11"))
-        whisper = phase_frontend(device, "whisper_small")
+        whisper = timed("12", phase_frontend, device, "whisper_small")
         path_counts["whisper"] = whisper.pop("counts")
         peaks.append(free_device("12"))
-        internvl = phase_frontend(device, "internvl2_1b")
+        internvl = timed("12", phase_frontend, device, "internvl2_1b")
         path_counts["internvl2"] = internvl.pop("counts")
         peaks.append(free_device("12"))
-        h2o = phase_h2o(device)
+        h2o = timed("13", phase_h2o, device)
         path_counts["h2o"] = h2o.pop("counts")
         peaks.append(free_device("13"))
+        train = timed("14", phase_train_qwen, device, tmp)
+        path_counts["train-qwen1.5"] = train.pop("counts")
+        peaks.append(free_device("14"))
+        rollback = timed("15", phase_rollback, device, tmp)
+        peaks.append(free_device("15"))
+        griffin_train = timed("16", phase_train_griffin, device)
+        path_counts["train-recurrentgemma"] = griffin_train.pop("counts")
+        peaks.append(free_device("16"))
+        aot = timed("17", phase_aot, device)
+        peaks.append(free_device("17"))
     launches = {k: sum(c.get(k, 0) for c in path_counts.values()) for k in kernel_fns()}
     log(f"[6] launches on the main paths: {launches}")
     path_counts["whisper-cross"] = path_counts["whisper"]
@@ -1890,13 +2326,13 @@ def main() -> int:
         f"{core_by_d} (d=128: qwen3-1.7b; d=256: recurrentgemma-2b; d=64: granite-moe, "
         f"whisper-small, internvl2-1b)")
     h2o.pop("flash_routes")
-    rows = phase_times(qimg, device, errs, launches, path_counts, path_routes,
-                       {"qwen3": serving.pop("decode_inputs"),
-                        "recurrentgemma": griffin.pop("decode_inputs"),
-                        "granite": granite.pop("decode_inputs"),
-                        "internvl2": internvl.pop("decode_inputs"),
-                        "whisper-cross": whisper.pop("decode_inputs"),
-                        "h2o": h2o.pop("decode_inputs")})
+    rows = timed("6", phase_times, qimg, device, errs, launches, path_counts, path_routes,
+                 {"qwen3": serving.pop("decode_inputs"),
+                  "recurrentgemma": griffin.pop("decode_inputs"),
+                  "granite": granite.pop("decode_inputs"),
+                  "internvl2": internvl.pop("decode_inputs"),
+                  "whisper-cross": whisper.pop("decode_inputs"),
+                  "h2o": h2o.pop("decode_inputs")})
     log(f"[6] qwen1.5-0.5b cold start, median of 3 (s): {json.dumps(qwen_cold)}")
     log(f"[7] serving summary: {json.dumps(serving)}")
     log(f"[8] falcon-mamba-7b summary: {json.dumps(falcon)}")
@@ -1906,6 +2342,10 @@ def main() -> int:
     log(f"[12] whisper-small summary: {json.dumps(whisper)}")
     log(f"[12] internvl2-1b summary: {json.dumps(internvl)}")
     log(f"[13] h2o-danube3-4b summary: {json.dumps(h2o)}")
+    log(f"[14] qwen1.5-0.5b training summary: {json.dumps(train)}")
+    log(f"[15] rollback summary: {json.dumps(rollback)}")
+    log(f"[16] recurrentgemma-2b training summary: {json.dumps(griffin_train)}")
+    log(f"[17] export summary: {json.dumps(aot)}")
     log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory {max(peaks) / 1e9:.2f} GB")
     print(card, flush=True)

@@ -1,0 +1,4 @@
+"""Checkpoints in the reference's format (port of ``repro.checkpoint``)."""
+from repro_torch.checkpoint.checkpointer import CheckpointConfig, Checkpointer, latest_step
+
+__all__ = ["CheckpointConfig", "Checkpointer", "latest_step"]

@@ -87,7 +87,8 @@ constexpr size_t smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H, int group,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H, int group,
                  int Sq, int Sk, float scale, int causal, int has_window, int window,
                  int has_softcap, float softcap, int skip_tiles, int heavy_first) {
   constexpr int QP = D + 1;
@@ -223,6 +224,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       if (tx + 16 * c < D) orow[tx + 16 * c] = acc[i][c] / denom;
+    // the row's log-sum-exp, for the backward (a null pointer when no gradient
+    // will be taken); a row whose keys are all masked keeps m = NEG_INF, and
+    // NEG_INF + log(Sk) rounds back to NEG_INF
+    if (lse != nullptr && tx == 0) lse[static_cast<size_t>(bh) * Sq + qi] = m[i] + logf(l[i]);
   }
 }
 
@@ -577,6 +582,7 @@ cudaError_t allow_smem(F* kernel, int bytes, std::atomic<int> (&allowed)[64]) {
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;                          // fp32 route only; null: not written
   int B, H, Hkv, Sq, Sk;
   float scale;
   int causal, has_window, window, has_softcap;
@@ -602,8 +608,8 @@ int launch_core(const Args& a, int block_q, int block_k) {
   dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
   flash_fwd_kernel<D><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.H, a.H / a.Hkv, a.Sq,
-      a.Sk, a.scale, a.causal, a.has_window, a.window, a.has_softcap, a.softcap,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.H, a.H / a.Hkv,
+      a.Sq, a.Sk, a.scale, a.causal, a.has_window, a.window, a.has_softcap, a.softcap,
       skip_rule(a), a.heavy_first);
   return static_cast<int>(cudaGetLastError());
 }
@@ -631,16 +637,21 @@ int launch_tc(const Args& a, int block_q, int block_k) {
 // route: 0 = cuda_core (float32), 1 = tc_bf16 (bfloat16). block_q, block_k and
 // heavy_first (launch the q tile with the most keys first) come from the
 // wrapper's plan and must match a compiled tiling. q (B,H,Sq,D), k/v
-// (B,Hkv,Sk,D), o like q; all contiguous, 16-byte aligned for tc_bf16.
-// Returns cudaGetLastError() after the launch.
+// (B,Hkv,Sk,D), o like q; all contiguous, 16-byte aligned for tc_bf16. lse
+// (B,H,Sq) fp32 receives each row's log-sum-exp for the backward: cuda_core
+// only, null when no gradient will be taken. Returns cudaGetLastError() after
+// the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int H, int Hkv, int Sq, int Sk, int D,
-                                      int route, int block_q, int block_k, int heavy_first,
-                                      float scale, int causal, int has_window, int window,
-                                      int has_softcap, float softcap, void* stream) {
+                                      void* lse, int B, int H, int Hkv, int Sq, int Sk,
+                                      int D, int route, int block_q, int block_k,
+                                      int heavy_first, float scale, int causal,
+                                      int has_window, int window, int has_softcap,
+                                      float softcap, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
-  const Args a{q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, has_window, window,
-               has_softcap, softcap, heavy_first, static_cast<cudaStream_t>(stream)};
+  if (lse != nullptr && route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Sq, Sk, scale, causal,
+               has_window, window, has_softcap, softcap, heavy_first,
+               static_cast<cudaStream_t>(stream)};
   if (route == 0) {
     switch (D) {
       case 32: return launch_core<32>(a, block_q, block_k);
@@ -657,6 +668,419 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       case 128: return launch_tc<128, 64, 64, 1>(a, block_q, block_k);
       case 256: return launch_tc<256, 64, 64, 1>(a, block_q, block_k);
     }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------------
+// backward (fp32, CUDA cores): FlashAttention-2's algorithm
+// ---------------------------------------------------------------------------------
+//
+// No TPU kernel has a backward: the reference trains through jnp attention
+// (src/repro/models/attention.py:111) and XLA differentiates it. The port runs
+// no plain version on the card, so the backward is a kernel too. From the
+// forward's row log-sum-exp lse (B,H,Sq) and its output O:
+//   D = rowsum(dO * O)                          flash_bwd_dot_kernel
+//   P = exp(s - lse) recomputed per tile, s the forward's scaled, soft-capped,
+//   masked logit; dP = dO V^T; dS = P * (dP - D), times 1 - tanh^2 under the
+//   softcap and 0 where the mask replaced the logit by NEG_INF;
+//   dV = P^T dO, dK = scale * dS^T Q            flash_bwd_dkdv_kernel
+//   dQ = scale * dS K                           flash_bwd_dq_kernel
+// A row whose keys are all masked (lse = NEG_INF) averaged v over its Sk keys
+// in the forward, so there P = 1/Sk and dS = 0.
+//
+// Bound on this card: operations (five products of 2*d flops per unmasked
+// (q, k) pair, against the bytes of q, k, v, O, dO, dQ, dK, dV). No float
+// atomics: the dK/dV kernel gives each block one kv head's tile of T keys and
+// loops over the group's g query heads and their q tiles inside the block;
+// the dQ kernel gives each block one q tile and loops over the key tiles. Each
+// sum runs in a fixed order, so a step is bitwise reproducible. Layout as the
+// forward's cuda_core route: 256 threads as 16 x 16; tiles of T = 64 rows
+// (T = 32 at d=256, inside the shared memory) in fp32 rows padded to an odd
+// stride; thread (ty, tx) owns rows ty*R.. of its block's resident tile
+// (R = T/16) and columns tx + 16j of the streamed one. Head dims that are not
+// a multiple of 16 use DP = pad16(D) output columns, the pad ones never read
+// or written. The card's tensor cores are left for a later design.
+
+namespace {
+
+template <int D>
+struct BwdCfg {
+  static constexpr int T = D > 128 ? 32 : 64;   // rows of a q tile and of a key tile
+  static constexpr int R = T / 16;              // rows per thread
+  static constexpr int DP = pad16(D);
+  static constexpr int CPT = DP / 16;           // output columns per thread
+  static constexpr int RS = D + 1;              // shared row stride
+  static constexpr int PS = T + 1;
+  static constexpr size_t kSmem = (4 * T * RS + 2 * T * PS + 2 * T) * sizeof(float);
+};
+
+struct BwdMask {
+  int Sq, Sk, causal, has_window, window, has_softcap;
+  float scale, softcap;
+};
+
+// P and dS of one (query row qi, key kj) from the raw dot products q.k and
+// dO.v, the row's lse and D
+__device__ __forceinline__ void bwd_entry(const BwdMask& m, int qi, int kj, float qk,
+                                          float dov, float lse_i, float d_i, float& p,
+                                          float& ds) {
+  p = 0.f;
+  ds = 0.f;
+  if (qi >= m.Sq || kj >= m.Sk) return;
+  float x = qk * m.scale, t = 0.f;
+  if (m.has_softcap) {
+    t = tanhf(x / m.softcap);
+    x = m.softcap * t;
+  }
+  bool vis = true;
+  if (m.causal) vis = vis && kj <= qi;
+  if (m.has_window) vis = vis && (qi - kj) < m.window;
+  if (lse_i < -1e38f) {                 // every key of the row masked: P = 1/Sk
+    p = 1.f / m.Sk;
+    return;
+  }
+  p = expf((vis ? x : kNegInf) - lse_i);
+  if (vis) ds = p * (dov - d_i) * (m.has_softcap ? 1.f - t * t : 1.f);
+}
+
+// rows [r0, r0 + T) of a (rows, D) fp32 matrix into a shared tile of stride
+// RS; rows past `rows` are zeros
+template <int D, int T>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
+                                          int rows, int tid) {
+  for (int i = tid; i < T * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    dst[r * (D + 1) + c] = (r0 + r < rows) ? src[static_cast<size_t>(r0) * D + i] : 0.f;
+  }
+}
+
+__global__ void flash_bwd_dot_kernel(const float* __restrict__ o,
+                                     const float* __restrict__ dout,
+                                     float* __restrict__ delta, int rows, int D) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* a = o + static_cast<size_t>(row) * D;
+  const float* b = dout + static_cast<size_t>(row) * D;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s = fmaf(a[c], b[c], s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int H, int group,
+                      BwdMask mk, int skip_tiles, int heavy_first) {
+  using C = BwdCfg<D>;
+  constexpr int T = C::T, R = C::R, RS = C::RS, PS = C::PS, CPT = C::CPT;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + T * RS;
+  float* Qs = Vs + T * RS;
+  float* Os = Qs + T * RS;               // dO rows
+  float* Ps = Os + T * RS;               // P^T: keys x queries
+  float* Ss = Ps + T * PS;               // dS^T
+  float* Ls = Ss + T * PS;
+  float* Dl = Ls + T;
+
+  const int Hkv = H / group;
+  const int bkv = blockIdx.x;
+  const int b = bkv / Hkv, hk = bkv % Hkv;
+  const int kt = heavy_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int k0 = kt * T;
+  const int Sq = mk.Sq, Sk = mk.Sk;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t kv_off = static_cast<size_t>(bkv) * Sk * D;
+  load_rows<D, T>(Ks, k + kv_off, k0, Sk, tid);
+  load_rows<D, T>(Vs, v + kv_off, k0, Sk, tid);
+
+  float acc_k[R][CPT], acc_v[R][CPT];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  int q_lo = 0, q_hi = Sq;
+  if (skip_tiles) {
+    if (mk.causal) q_lo = k0;
+    if (mk.has_window) q_hi = min(Sq, k0 + T - 1 + mk.window);
+  }
+  for (int hq = 0; hq < group; ++hq) {
+    const size_t bh = static_cast<size_t>(b) * H + hk * group + hq;
+    const float* qp = q + bh * Sq * D;
+    const float* op = dout + bh * Sq * D;
+    for (int q0 = (q_lo / T) * T; q0 < q_hi; q0 += T) {
+      __syncthreads();                   // the previous tile's readers are done
+      load_rows<D, T>(Qs, qp, q0, Sq, tid);
+      load_rows<D, T>(Os, op, q0, Sq, tid);
+      for (int r = tid; r < T; r += kThreads) {
+        const bool in = q0 + r < Sq;
+        Ls[r] = in ? lse[bh * Sq + q0 + r] : 0.f;
+        Dl[r] = in ? delta[bh * Sq + q0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      float qk[R][R], dov[R][R];         // keys ty*R+i x queries tx+16j
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) qk[i][j] = dov[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float ka[R], va[R], qb[R], ob[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          ka[i] = Ks[(ty * R + i) * RS + d];
+          va[i] = Vs[(ty * R + i) * RS + d];
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          qb[j] = Qs[(tx + 16 * j) * RS + d];
+          ob[j] = Os[(tx + 16 * j) * RS + d];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            qk[i][j] = fmaf(qb[j], ka[i], qk[i][j]);
+            dov[i][j] = fmaf(ob[j], va[i], dov[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int qr = tx + 16 * j;
+          float p, ds;
+          bwd_entry(mk, q0 + qr, k0 + ty * R + i, qk[i][j], dov[i][j], Ls[qr], Dl[qr], p, ds);
+          Ps[(ty * R + i) * PS + qr] = p;
+          Ss[(ty * R + i) * PS + qr] = ds;
+        }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int qq = 0; qq < T; ++qq) {
+        float pv[R], sv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          pv[i] = Ps[(ty * R + i) * PS + qq];
+          sv[i] = Ss[(ty * R + i) * PS + qq];
+        }
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const int col = tx + 16 * c;
+          if (C::DP != D && col >= D) continue;
+          const float ov = Os[qq * RS + col], qv = Qs[qq * RS + col];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            acc_v[i][c] = fmaf(pv[i], ov, acc_v[i][c]);
+            acc_k[i][c] = fmaf(sv[i], qv, acc_k[i][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kj = k0 + ty * R + i;
+    if (kj >= Sk) continue;
+    const size_t row = kv_off + static_cast<size_t>(kj) * D;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int col = tx + 16 * c;
+      if (col < D) {
+        dk[row + col] = acc_k[i][c] * mk.scale;
+        dv[row + col] = acc_v[i][c];
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int H, int group, BwdMask mk, int skip_tiles,
+                    int heavy_first) {
+  using C = BwdCfg<D>;
+  constexpr int T = C::T, R = C::R, RS = C::RS, PS = C::PS, CPT = C::CPT;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Os = Qs + T * RS;               // dO rows
+  float* Ks = Os + T * RS;
+  float* Vs = Ks + T * RS;
+  float* Ss = Vs + T * RS;               // dS: queries x keys
+  float* Ls = Ss + T * PS;
+  float* Dl = Ls + T;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int Hkv = H / group;
+  const int qt = heavy_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * T;
+  const int Sq = mk.Sq, Sk = mk.Sk;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t q_off = static_cast<size_t>(bh) * Sq * D;
+  const size_t kv_off = static_cast<size_t>(b * Hkv + h / group) * Sk * D;
+  load_rows<D, T>(Qs, q + q_off, q0, Sq, tid);
+  load_rows<D, T>(Os, dout + q_off, q0, Sq, tid);
+  for (int r = tid; r < T; r += kThreads) {
+    const bool in = q0 + r < Sq;
+    Ls[r] = in ? lse[static_cast<size_t>(bh) * Sq + q0 + r] : 0.f;
+    Dl[r] = in ? delta[static_cast<size_t>(bh) * Sq + q0 + r] : 0.f;
+  }
+
+  float acc[R][CPT];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+
+  int k_lo = 0, k_hi = Sk;
+  if (skip_tiles) {
+    if (mk.causal) k_hi = min(Sk, q0 + T);
+    if (mk.has_window) k_lo = max(0, q0 - mk.window + 1);
+  }
+  for (int k0 = (k_lo / T) * T; k0 < k_hi; k0 += T) {
+    __syncthreads();
+    load_rows<D, T>(Ks, k + kv_off, k0, Sk, tid);
+    load_rows<D, T>(Vs, v + kv_off, k0, Sk, tid);
+    __syncthreads();
+
+    float qk[R][R], dov[R][R];           // queries ty*R+i x keys tx+16j
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) qk[i][j] = dov[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qa[R], oa[R], kb[R], vb[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        qa[i] = Qs[(ty * R + i) * RS + d];
+        oa[i] = Os[(ty * R + i) * RS + d];
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        kb[j] = Ks[(tx + 16 * j) * RS + d];
+        vb[j] = Vs[(tx + 16 * j) * RS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          qk[i][j] = fmaf(qa[i], kb[j], qk[i][j]);
+          dov[i][j] = fmaf(oa[i], vb[j], dov[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int qr = ty * R + i;
+        float p, ds;
+        bwd_entry(mk, q0 + qr, k0 + tx + 16 * j, qk[i][j], dov[i][j], Ls[qr], Dl[qr], p, ds);
+        Ss[qr * PS + tx + 16 * j] = ds;
+      }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < T; ++kk) {
+      float sv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) sv[i] = Ss[(ty * R + i) * PS + kk];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int col = tx + 16 * c;
+        if (C::DP != D && col >= D) continue;
+        const float kv = Ks[kk * RS + col];
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[i][c] = fmaf(sv[i], kv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
+    if (qi >= Sq) continue;
+    float* row = dq + q_off + static_cast<size_t>(qi) * D;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int col = tx + 16 * c;
+      if (col < D) row[col] = acc[i][c] * mk.scale;
+    }
+  }
+}
+
+template <int D>
+int launch_bwd(const Args& a, const float* dout, const float* lse, float* delta, float* dq,
+               float* dk, float* dv) {
+  using C = BwdCfg<D>;
+  static std::atomic<int> allowed_kv[64], allowed_q[64];
+  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, static_cast<int>(C::kSmem), allowed_kv);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_bwd_dq_kernel<D>, static_cast<int>(C::kSmem), allowed_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = a.B * a.H * a.Sq;
+  flash_bwd_dot_kernel<<<(rows + 7) / 8, 256, 0, a.stream>>>(
+      static_cast<const float*>(a.o), dout, delta, rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdMask mk{a.Sq, a.Sk, a.causal, a.has_window, a.window, a.has_softcap, a.scale,
+                   a.softcap};
+  const int group = a.H / a.Hkv;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  // causal: the key tiles with the most queries are the first ones, the q
+  // tiles with the most keys the last ones; each grid starts with its heaviest
+  dim3 grid_kv(a.B * a.Hkv, (a.Sk + C::T - 1) / C::T);
+  flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, C::kSmem, a.stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, a.H, group, mk, skip_rule(a), 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid_q(a.B * a.H, (a.Sq + C::T - 1) / C::T);
+  flash_bwd_dq_kernel<D><<<grid_q, kThreads, C::kSmem, a.stream>>>(
+      q, k, v, dout, lse, delta, dq, a.H, group, mk, skip_rule(a), a.heavy_first);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The backward of the fp32 route. q, o, dout, dq (B,H,Sq,D); k, v, dk, dv
+// (B,Hkv,Sk,D); lse and delta (scratch for D = rowsum(dO * O)) (B,H,Sq); all
+// fp32 and contiguous. Three launches on `stream`: the rowsum, dK/dV, dQ.
+// Returns the first CUDA error of a launch, else 0.
+extern "C" int flash_attention_backward_launch(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int Hkv,
+    int Sq, int Sk, int D, int heavy_first, float scale, int causal, int has_window,
+    int window, int has_softcap, float softcap, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  const Args a{q, k, v, const_cast<void*>(o), nullptr, B, H, Hkv, Sq, Sk, scale, causal,
+               has_window, window, has_softcap, softcap, heavy_first,
+               static_cast<cudaStream_t>(stream)};
+  const float* g = static_cast<const float*>(dout);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  float* gq = static_cast<float*>(dq);
+  float* gk = static_cast<float*>(dk);
+  float* gv = static_cast<float*>(dv);
+  switch (D) {
+    case 32: return launch_bwd<32>(a, g, l, dl, gq, gk, gv);
+    case 64: return launch_bwd<64>(a, g, l, dl, gq, gk, gv);
+    case 120: return launch_bwd<120>(a, g, l, dl, gq, gk, gv);
+    case 128: return launch_bwd<128>(a, g, l, dl, gq, gk, gv);
+    case 256: return launch_bwd<256>(a, g, l, dl, gq, gk, gv);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

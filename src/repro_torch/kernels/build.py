@@ -24,6 +24,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+
+class KernelLaunchError(RuntimeError):
+    """A CUDA kernel of the port could not be built or launched. A fault in
+    the program or the card, not in the data: a training supervisor re-raises
+    it instead of rolling back and retrying."""
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}     # guarded-by: _lock
 #: compiler output per source (``-Xptxas -v``: registers, shared memory, spills)
@@ -33,8 +40,8 @@ BUILD_LOG: Dict[str, str] = {}         # guarded-by: _lock
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
+        raise KernelLaunchError("nvcc not found: the CUDA kernels need the CUDA "
+                                "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
     return path
 
 
@@ -71,7 +78,7 @@ def build_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
             else:
                 os.replace(tmp, out)
         if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            raise KernelLaunchError("nvcc failed for " + "\n".join(failed))
         for name in todo:
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return dict(_libs)
@@ -84,7 +91,25 @@ def library(name: str) -> ctypes.CDLL:
 def check(status: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+        raise KernelLaunchError(f"{what}: CUDA error {status} at launch")
+
+
+def launch_pass() -> str:
+    """``recompute`` while the autograd engine runs (a segment that
+    ``torch.utils.checkpoint`` recomputes for its backward), else
+    ``forward``: the pass a forward launch is counted under."""
+    import torch
+    return "recompute" if torch._C._current_graph_task_id() != -1 else "forward"
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and a CUDA input of a kernel that has no
+    backward requires a gradient: the kernel's output would be detached, and
+    the gradient upstream of it silently lost."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward on the card: call it under "
+                           f"torch.no_grad() or on inputs that need no gradient")
 
 
 def on_device(device):

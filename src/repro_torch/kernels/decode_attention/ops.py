@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import check, library, on_device
+from repro_torch.kernels.build import check, library, on_device, refuse_grad
 
 NEG_INF = -2.0e38
 #: (head dim, H/Hkv) pairs with a compiled kernel: every config's and the
@@ -128,7 +128,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
     CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch the
     kernel (contiguous, 16-byte aligned fp32 or bf16, (d, g) in
-    :data:`SHAPES`), counted in ``decode_attention.launches``.
+    :data:`SHAPES`), counted in ``decode_attention.launches``. The kernel has
+    no backward: a CUDA input that requires a gradient while grad mode is on
+    raises.
     """
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"want q (B,H,d) and k/v (B,Hkv,S,d), got {tuple(q.shape)}, "
@@ -152,6 +154,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                                       scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     check_shape(d, H // Hkv)

@@ -14,6 +14,13 @@ fp32 runs ``cuda_core``, fp32 products on CUDA cores, which keeps the fp32
 bar of 2e-5 that TF32 would break. Both keep the running max, denominator and
 accumulator in fp32 registers, skip kv tiles that the causal or window mask
 hides from a whole q tile, and launch causal q tiles heaviest first.
+
+The kernel is the PyTorch op ``repro_torch::flash_attention``: the plain
+version on the CPU, the kernel on CUDA, a fake implementation for
+``torch.export`` and an autograd formula. When a gradient will be taken the
+fp32 forward also writes each row's log-sum-exp, and the backward runs
+FlashAttention-2's algorithm in CUDA (:func:`flash_attention_backward`,
+fp32 only); a bf16 input that needs a gradient raises on the card.
 """
 from __future__ import annotations
 
@@ -21,11 +28,11 @@ import ctypes
 import functools
 import math
 import threading
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import check, library, on_device
+from repro_torch.kernels.build import check, launch_pass, library, on_device
 
 NEG_INF = -2.0e38
 #: head dims with a compiled kernel; 120 (h2o-danube3) runs on tiles 128 wide
@@ -72,15 +79,13 @@ def q_tile_order(p: FlashPlan) -> List[int]:
     return [n - 1 - y if p.heavy_first else y for y in range(n)]
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
-                          scale=None) -> torch.Tensor:
-    """Plain PyTorch version, mirroring ``flash_attention/ref.py``: fp32
-    einsum, softcap, finite ``NEG_INF`` mask, softmax, einsum, cast."""
+def _plain_scores(q, k, causal, window, softcap, scale) -> torch.Tensor:
+    """The plain version's logits ``(B, Hkv, g, Sq, Sk)`` in fp32: scaled,
+    soft-capped, masked logits set to the finite :data:`NEG_INF`."""
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    g = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qg = q.reshape(B, Hkv, g, Sq, d).float()
+    qg = q.reshape(B, Hkv, H // Hkv, Sq, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
@@ -91,34 +96,32 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
         mask &= ki <= qi
     if window is not None:
         mask &= (qi - ki) < window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
+                          scale=None) -> torch.Tensor:
+    """Plain PyTorch version, mirroring ``flash_attention/ref.py``: fp32
+    einsum, softcap, finite ``NEG_INF`` mask, softmax, einsum, cast."""
+    B, H, Sq, d = q.shape
+    p = torch.softmax(_plain_scores(q, k, causal, window, softcap, scale), dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(B, H, Sq, d).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _launch_fn():
-    fn = library("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def flash_attention_backward_plain(q, k, v, dout, *, causal=True, window=None,
+                                   softcap=None, scale=None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``: ``torch.autograd.grad`` through
+    :func:`flash_attention_plain` at the same inputs."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_plain(*qkv, causal=causal, window=window, softcap=softcap,
+                                    scale=scale)
+        return torch.autograd.grad(out, qkv, dout)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over q ``(B, H, Sq, d)`` and k/v ``(B, Hkv, Sk, d)``.
-
-    CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel on the route :func:`plan` picks (contiguous fp32 or bf16, d in
-    :data:`HEAD_DIMS`; bf16 16-byte aligned), counted in
-    ``flash_attention.launches`` and per route in
-    ``flash_attention.launches_by_route``.
-    """
+def _check_args(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,H,Sq,d) and k/v (B,Hkv,Sk,d), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -132,24 +135,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_fn():
+    fn = library("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_fn():
+    fn = library("flash_attention").flash_attention_backward_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: Optional[int], softcap: Optional[float], scale: float,
+              with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``; lse ``(B, H, Sq)`` fp32 with ``with_lse``, else empty."""
+    out = flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap,
+                                scale=scale)
+    if not with_lse:
+        return out, q.new_empty((0,), dtype=torch.float32)
+    s = _plain_scores(q, k, causal, window, softcap, scale)
+    return out, torch.logsumexp(s, dim=-1).reshape(q.shape[:3])
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, causal, window, softcap, scale, with_lse):
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     p = plan(q.dtype, d, Sq, causal)
+    if with_lse and p.route != "cuda_core":
+        raise TypeError("the flash_attention backward on the card takes float32 only")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
     if p.route == "tc_bf16" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core route takes 16-byte aligned q, k, v")
     if p.n_q_tiles > 65535:
         raise ValueError(f"{p.n_q_tiles} q tiles exceed the grid limit 65535")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    lse = q.new_empty((B, H, Sq) if with_lse else (0,), dtype=torch.float32)
     fn = _launch_fn()
     with on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if with_lse else None,
                     B, H, Hkv, Sq, Sk, d, ROUTES.index(p.route), p.block_q, p.block_k,
                     int(p.heavy_first), float(scale), int(causal),
                     int(window is not None), int(window) if window is not None else 0,
@@ -159,8 +202,105 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with _count_lock:
         flash_attention.launches += 1
         flash_attention.launches_by_route[p.route] += 1
-    return out
+        flash_attention.launches_by_pass[launch_pass()] += 1
+    return out, lse
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, softcap, scale, with_lse):
+    lse_shape = tuple(q.shape[:3]) if with_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, causal, window, softcap, scale, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+
+
+def _flash_grad(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, **ctx.opts)
+    return dq, dk, dv, None, None, None, None, None
+
+
+_flash_op.register_autograd(_flash_grad, setup_context=_flash_setup)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over q ``(B, H, Sq, d)`` and k/v ``(B, Hkv, Sk, d)``.
+
+    CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch the
+    kernel on the route :func:`plan` picks (contiguous fp32 or bf16, d in
+    :data:`HEAD_DIMS`; bf16 16-byte aligned), counted in
+    ``flash_attention.launches``, per route in
+    ``flash_attention.launches_by_route`` and per pass (``forward``, or
+    ``recompute`` inside a backward) in ``flash_attention.launches_by_pass``.
+    Differentiable: when grad mode is on and an input requires a gradient,
+    the kernel also writes the rows' log-sum-exp for the backward, which
+    takes float32 only on the card.
+    """
+    _check_args(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    with_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _flash_op(q, k, v, causal, window, softcap, float(scale), with_lse)[0]
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: Optional[int] = None,
+                             softcap: Optional[float] = None,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention` given its output ``out``,
+    its rows' log-sum-exp ``lse`` and the output's gradient ``dout``.
+
+    CPU tensors run :func:`flash_attention_backward_plain` (``out`` and
+    ``lse`` unused); CUDA tensors launch the backward kernels (fp32 only: a
+    bf16 input raises ``TypeError``), counted in
+    ``flash_attention_backward.launches``.
+    """
+    _check_args(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, dout, causal=causal, window=window,
+                                              softcap=softcap, scale=scale)
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if q.dtype != torch.float32:
+        raise TypeError(f"the flash_attention backward on the card takes float32 only, "
+                        f"got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dim in {HEAD_DIMS}, got {d}")
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"lse {tuple(lse.shape)} is not (B, H, Sq): the forward ran "
+                         f"without a gradient to take")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dout = dout.contiguous()
+    if not all(t.is_contiguous() for t in (q, k, v, out, lse)):
+        raise ValueError("q, k, v, out and lse must be contiguous")
+    if -(-max(Sq, Sk) // 32) > 65535:
+        raise ValueError(f"Sq {Sq} / Sk {Sk} exceed the grid limit")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    with on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = _backward_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, Hkv, Sq, Sk, d, int(causal), float(scale), int(causal),
+            int(window is not None), int(window) if window is not None else 0,
+            int(softcap is not None), float(softcap) if softcap is not None else 0.0,
+            stream)
+    check(status, "flash_attention_backward")
+    with _count_lock:
+        flash_attention_backward.launches += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention.launches_by_pass = dict.fromkeys(("forward", "recompute"), 0)
+flash_attention_backward.launches = 0

@@ -24,7 +24,7 @@ from typing import Iterator, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.build import check, library, on_device
+from repro_torch.kernels.build import check, library, on_device, refuse_grad
 
 CHUNK_BYTES = 32 * 1024     # bytes per work item (a bulk copy's size)
 STAGES = 3                  # shared-memory stages per block (2 to 8)
@@ -106,7 +106,8 @@ def page_gather(pool: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
     list is checked without a device sync, then passed in the launch's
     parameters (up to :data:`INLINE_IDS` ids) or copied over through pinned
     memory. CPU pools run the plain version; CUDA pools launch the kernel,
-    counted in ``page_gather.launches``.
+    counted in ``page_gather.launches``. The kernel has no backward: a CUDA
+    pool that requires a gradient while grad mode is on raises.
     """
     if pool.dim() != 2 or page_ids.dim() != 1:
         raise ValueError(f"want pool (P, E) and ids (K,), got {tuple(pool.shape)} "
@@ -126,6 +127,7 @@ def page_gather(pool: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
         return page_gather_plain(pool, page_ids)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
+    refuse_grad("page_gather", pool)
     if page_ids.device.type != "cpu" and page_ids.device != pool.device:
         raise ValueError("page ids must be on the CPU or on the pool's device")
     page_ids = page_ids.to(torch.int32).contiguous()

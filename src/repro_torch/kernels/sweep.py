@@ -10,6 +10,12 @@ cost against how much of each row is filled, and diag_recurrence's two
 routes and chunk lengths across channel counts, to place the threshold
 between the routes (``diag_recurrence.ops.SEQUENTIAL_MIN_THREADS_PER_SM``).
 
+``--host`` prints the wrappers' host time per call (flash_attention at
+qwen1.5-0.5b's S=64 prefill in bf16 and qwen3-1.7b's fp32 prefill,
+diag_recurrence at the RG-LRU prefill): the median of 200 calls, each from
+an idle device, as serving calls them (no gradient). Through the public
+wrappers only, so the same file times an earlier tree's as ``--main`` does.
+
 ``--main`` times both kernels at the main paths' shapes through their public
 wrappers only, on three clocks: device time with a warm L2, device time with
 a cold L2, and host-paced (back-to-back calls without the sleep ahead, so a
@@ -28,6 +34,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -104,6 +111,58 @@ def recurrence_work(a):
     h0 and h_final once, in fp32."""
     B, S, C = a.shape
     return 3 * B * S * C * 4 + 2 * B * C * 4, 2 * B * S * C
+
+
+def flash_backward_work(q, k, causal, window):
+    """(bytes, operations) of one flash_attention backward in fp32: q, k, v,
+    the output, its gradient and the rows' lse read once, dq, dk, dv written
+    once; five products (S, dP, dV, dS.K, dS^T.Q) of 2*d operations per
+    unmasked (query, key) pair and head."""
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    lo = [max(0, i - window + 1) if window is not None else 0 for i in range(Sq)]
+    hi = [min(i + 1, Sk) if causal else Sk for i in range(Sq)]
+    pairs = sum(max(0, h - l) for l, h in zip(lo, hi))
+    moved = 4 * (3 * B * H * Sq * d + 4 * B * Hkv * Sk * d + B * H * Sq * d + B * H * Sq)
+    return moved, 10 * d * pairs * B * H
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Median host time of one call of ``fn`` in us, the device idle before
+    each call (a synchronize outside the timed part)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def time_host(device, rows: list) -> None:
+    """The wrappers' host time per call, twice in turns."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device=device).manual_seed(6)
+    cases = []
+    for label, (B, H, Hkv, S, d), dtype in (("qwen1.5 prefill S=64", (1, 16, 16, 64, 64),
+                                             torch.bfloat16),
+                                            ("qwen3 prefill S=2048", (1, 16, 8, 2048, 128),
+                                             torch.float32)):
+        q = torch.randn((B, H, S, d), generator=gen, device=device).to(dtype)
+        k = torch.randn((B, Hkv, S, d), generator=gen, device=device).to(dtype)
+        cases.append(("flash_attention", label, lambda q=q, k=k: flash_attention(q, k, k)))
+    B, S, C = RECURRENCE_CASES["recurrentgemma"]
+    a = torch.rand((B, S, C), generator=gen, device=device) * 0.5 + 0.5
+    h0 = torch.randn((B, C), generator=gen, device=device)
+    cases.append(("diag_recurrence", f"RG-LRU B{B} S{S} C{C}",
+                  lambda: rec.diag_recurrence(a, a, h0)))
+    for turn, (kernel, label, fn) in itertools.product(range(2), cases):
+        for _ in range(10):
+            fn()
+        row = {"kernel": kernel, "shape": label, "turn": turn, "host_us": host_us(fn)}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
 
 
 def card() -> str:
@@ -235,6 +294,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--main", action="store_true",
                     help="time both kernels at the main paths' shapes on three clocks")
+    ap.add_argument("--host", action="store_true",
+                    help="the wrappers' host time per call")
     ap.add_argument("--out", help="also write the rows as JSON to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -243,7 +304,9 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     print(card(), flush=True)
     rows: list = []
-    if args.main:
+    if args.host:
+        time_host(device, rows)
+    elif args.main:
         time_main(device, rows)
     else:
         sweep_decode(device, rows)

@@ -24,9 +24,16 @@ encoder-decoder ``cross``: each unit's encoder keys and values,
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.diag_recurrence import diag_recurrence
@@ -104,16 +111,23 @@ def _index(tree: Any, i: int) -> Any:
 
 
 def _apply_mlp_part(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, *,
-                    decode: bool = False) -> torch.Tensor:
-    """The MLP sublayer, dense or mixture-of-experts. The experts' aux loss
-    only feeds training, which this port does not run yet, so it is dropped;
+                    decode: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The MLP sublayer, dense or mixture-of-experts: ``(x, aux)``, aux the
+    experts' load-balancing loss (None for a dense MLP: no device work);
     decode routes with ``no_drop`` as the reference does."""
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.n_experts > 0:
-        out, _ = moe_mod.moe_ffn(p["moe"], h, cfg, no_drop=decode)
+        out, aux = moe_mod.moe_ffn(p["moe"], h, cfg, no_drop=decode)
     else:
-        out = mlp(p["mlp"], h, cfg.mlp)
-    return x + out
+        out, aux = mlp(p["mlp"], h, cfg.mlp), None
+    return x + out, aux
+
+
+def _add_aux(acc: Optional[torch.Tensor], aux: Optional[torch.Tensor]):
+    """Sum of two aux losses, None standing for 0."""
+    if acc is None:
+        return aux
+    return acc if aux is None else acc + aux
 
 
 def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str,
@@ -121,12 +135,13 @@ def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str
                  make_state: bool = False, state_len: Optional[int] = None,
                  rec_chunk: int = 256, causal: bool = True,
                  cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Returns ``(x, layer state)``, the state None unless ``make_state``."""
+    """Returns ``(x, layer state, aux)``, the state None unless
+    ``make_state``, aux None without experts."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if ltype == SSM:                      # the Mamba block replaces attention and MLP
         out, st = ssm_mod.ssm_prefill(p["ssm"], h, cfg, make_state=make_state,
                                       chunk=rec_chunk, recurrence_fn=recurrence_fn)
-        return x + out, st
+        return x + out, st, None
     if ltype == RECURRENT:
         out, st = rglru_mod.rglru_prefill(p["rec"], h, cfg, make_state=make_state,
                                           recurrence_fn=recurrence_fn)
@@ -140,7 +155,33 @@ def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str
         hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
         x = x + attn.cross_attention(p["xattn"], hx, *cross_kv, cfg,
                                      attention_fn=attention_fn)
-    return _apply_mlp_part(p, x, cfg), st
+    x, aux = _apply_mlp_part(p, x, cfg)
+    return x, st, aux
+
+
+REMAT = ("none", "unit", "dots")
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the products without batch dims
+    (JAX's ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` as the backward sees it under ``remat``: ``none`` keeps every
+    activation, ``unit`` recomputes the whole segment in the backward
+    (non-reentrant ``torch.utils.checkpoint``), ``dots`` recomputes all but
+    the matrix products' outputs (selective checkpointing)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "none":
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if remat == "dots" else noop_context_fn)
+    return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context_fn)
 
 
 def _stack(states):
@@ -149,16 +190,22 @@ def _stack(states):
 
 
 def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ArchConfig, *,
-           attention_fn: Callable = flash_attention) -> torch.Tensor:
+           attention_fn: Callable = flash_attention, remat: bool = False) -> torch.Tensor:
     """frames: (B, Senc, D) stub embeddings -> the encoder output, through
-    ``n_enc_layers`` non-causal global layers in the parameters' dtype."""
+    ``n_enc_layers`` non-causal global layers in the parameters' dtype; with
+    ``remat`` each layer is recomputed in the backward."""
     x = frames.to(params["enc_norm"]["scale"].dtype)
     S = x.shape[1]
     x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
+
+    def layer(x, u):
+        return _apply_layer(_index(params["enc"], u), x, cfg, GLOBAL_ATTN, positions,
+                            attention_fn, diag_recurrence, causal=False)[0]
+
+    layer = _remat(layer, "unit" if remat else "none")
     for u in range(cfg.n_enc_layers):
-        x, _ = _apply_layer(_index(params["enc"], u), x, cfg, GLOBAL_ATTN, positions,
-                            attention_fn, diag_recurrence, causal=False)
+        x = layer(x, u)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -175,6 +222,8 @@ def forward(
     make_state: bool = False,
     state_len: Optional[int] = None,        # decode-state capacity (prompt + budget)
     rec_chunk: int = 256,                   # SSM positions expanded per recurrence call
+    remat: str = "none",                    # none | unit | dots (training)
+    return_aux: bool = False,               # also return the MoE aux loss
 ):
     """Logits fp32 (B, S_total, Vp), or features (B, S_total, D) with
     ``return_features``.
@@ -188,15 +237,26 @@ def forward(
     versions to check the kernel path. With ``make_state`` it returns
     ``(logits, state)``: the decode state ``{"unit", "rem", "pos"}`` (and
     ``"cross"`` for the encoder-decoder) laid out as the reference's, caches
-    sized for ``state_len`` positions. The reference also returns the MoE aux
-    loss, which only training reads.
+    sized for ``state_len`` positions. With ``return_aux`` the MoE
+    load-balancing loss (fp32 scalar, summed over the layers; 0 without
+    experts) follows the logits: ``(logits, aux)`` or ``(logits, aux,
+    state)``, the reference's order. ``remat`` (``none``, ``unit``:
+    recompute each pattern unit in the backward; ``dots``: keep only the
+    matrix products' outputs, see :func:`_remat`) bounds a training step's
+    activation memory; the encoder's layers are recomputed unless it is
+    ``none``. The reference's attention ``q_chunk`` has no counterpart: the
+    attention core is the kernel.
     """
+    if make_state and remat != "none":
+        raise ValueError("remat is for training: a forward that makes the decode "
+                         "state keeps its activations")
     x = embed_tokens(params["embed"], tokens, cfg)
     enc_out = None
     if cfg.is_encoder_decoder:
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name} needs stub frame embeddings (frontend_embeds)")
-        enc_out = encode(params, frontend_embeds, cfg, attention_fn=attention_fn)
+        enc_out = encode(params, frontend_embeds, cfg, attention_fn=attention_fn,
+                         remat=remat != "none")
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     elif frontend_embeds is not None:       # VLM: prepend the patch embeddings
         x = torch.cat([frontend_embeds.to(x.device, x.dtype), x], dim=1)
@@ -206,34 +266,51 @@ def forward(
                make_state=make_state, state_len=state_len, rec_chunk=rec_chunk)
     unit_states = [[] for _ in cfg.attn_pattern]
     cross_k, cross_v = [], []
-    for u in range(cfg.n_pattern_units):
+
+    def unit(x, u):
+        """One pattern unit: ``(x, aux)`` (aux None without experts); states
+        and cross keys are collected on the side (only when ``make_state``,
+        so never under remat)."""
+        aux = None
         for i, ltype in enumerate(cfg.attn_pattern):
             p = _index(params["unit"][i], u)
             ck = None
             if enc_out is not None:
                 ck = attn.project_cross_kv(p["xattn"], enc_out, cfg)
-            x, st = _apply_layer(p, x, cfg, ltype, positions, cross_kv=ck, **run)
+            x, st, a = _apply_layer(p, x, cfg, ltype, positions, cross_kv=ck, **run)
+            aux = _add_aux(aux, a)
             unit_states[i].append(st)
-        if ck is not None:      # the reference keeps the unit's last layer's
-            cross_k.append(ck[0])
+        if enc_out is not None and make_state:   # the reference keeps the unit's last
+            cross_k.append(ck[0])                 # layer's
             cross_v.append(ck[1])
+        return x, aux
+
+    unit = _remat(unit, remat)
+    aux_loss = None
+    for u in range(cfg.n_pattern_units):
+        x, a = unit(x, u)
+        aux_loss = _add_aux(aux_loss, a)
     rem_states = []
     for i, p in enumerate(params.get("rem", ())):
-        x, st = _apply_layer(p, x, cfg, _ltype(cfg, i), positions, **run)
+        x, st, a = _apply_layer(p, x, cfg, _ltype(cfg, i), positions, **run)
+        aux_loss = _add_aux(aux_loss, a)
         rem_states.append(st)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
     out = x if return_features else unembed(params["embed"], x, cfg)
+    if return_aux and aux_loss is None:
+        aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    head = (out, aux_loss) if return_aux else (out,)
     if not make_state:
-        return out
+        return head if return_aux else out
     state = {"unit": tuple(_stack(s) for s in unit_states),
              "rem": tuple(rem_states),
              "pos": torch.full((tokens.shape[0],), S, dtype=torch.int32,
                                device=x.device)}
     if cross_k:
         state["cross"] = {"k": torch.stack(cross_k), "v": torch.stack(cross_v)}
-    return out, state
+    return (*head, state)
 
 
 # ---------------------------------------------------------------------------------
@@ -260,7 +337,7 @@ def _apply_layer_decode(p: Dict[str, Any], x: torch.Tensor, st, pos: torch.Tenso
         hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
         x = x + attn.cross_attention_decode(p["xattn"], hx, *cross_kv, cfg,
                                             decode_fn=decode_fn)
-    return _apply_mlp_part(p, x, cfg, decode=True), st
+    return _apply_mlp_part(p, x, cfg, decode=True)[0], st
 
 
 def _empty_layer_state(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dtype,

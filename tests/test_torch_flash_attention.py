@@ -2,6 +2,9 @@
 jnp oracle and the model's blockwise path; the launch planner; and an
 emulation of the tensor-core route's rounding points against both. The CUDA
 kernel itself is checked in tests/test_torch_kernels_gpu.py."""
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +14,9 @@ from repro.kernels import attention_ref, flash_attention as jax_flash
 from repro.models.attention import blockwise_attention
 from repro_torch.kernels import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.ops import (
+    _flash_op,
+    flash_attention_backward,
+    flash_attention_backward_plain,
     CORE_TILES,
     HEAD_DIMS,
     NEG_INF,
@@ -250,3 +256,96 @@ def test_cpu_calls_count_no_route():
     flash_attention(q, q, q)
     assert flash_attention.launches_by_route == before
 
+
+
+# (B, H, Hkv, Sq, Sk, d, causal, window, softcap): the backward's cases
+GRAD_ROWS = [
+    (2, 4, 2, 40, 40, 16, True, None, None),
+    (1, 4, 1, 33, 33, 32, True, 8, 30.0),        # GQA g=4, window, softcap
+    (1, 2, 2, 20, 50, 24, False, None, None),    # cross attention, Sq < Sk
+    (1, 2, 1, 50, 20, 16, True, None, 5.0),      # Sq > Sk, causal
+    (1, 2, 2, 18, 18, 16, True, 0, None),        # every key masked
+    (1, 2, 1, 30, 12, 16, True, 4, None),        # Sq > Sk with a window: rows with no key
+]
+
+
+def _emulated_backward(q, k, v, dout, causal, window, softcap):
+    """The backward kernels' algorithm (csrc/flash_attention.cu) in fp32
+    tensor ops: lse from the op's forward, D = rowsum(dO * O), P = exp(s - lse)
+    (1/Sk in a row whose keys are all masked), dS = P (dP - D) (1 - tanh^2)
+    where the logit was not masked, dV = P^T dO and dK = scale dS^T Q summed
+    over the group's heads, dQ = scale dS K."""
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g, scale = H // Hkv, 1.0 / math.sqrt(d)
+    out, lse = _flash_op(q, k, v, causal, window, softcap, scale, True)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    qg = q.reshape(B, Hkv, g, Sq, d)
+    og = dout.reshape(B, Hkv, g, Sq, d)
+    x = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * scale
+    t = torch.tanh(x / softcap) if softcap else None
+    if softcap:
+        x = softcap * t
+    qi, ki = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    vis = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        vis &= ki <= qi
+    if window is not None:
+        vis &= (qi - ki) < window
+    lse = lse.reshape(B, Hkv, g, Sq, 1)
+    s = torch.where(vis, x, torch.full_like(x, NEG_INF))
+    p = torch.where(lse < -1e38, torch.full_like(s, 1.0 / Sk), torch.exp(s - lse))
+    delta = (dout * out).sum(-1).reshape(B, Hkv, g, Sq, 1)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", og, v)
+    ds = p * (dp - delta) * ((1 - t * t) if softcap else 1.0)
+    ds = torch.where(vis & (lse > -1e38), ds, torch.zeros_like(ds))
+    dq = scale * torch.einsum("bhgqk,bhkd->bhgqd", ds, k).reshape(B, H, Sq, d)
+    dk = scale * torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, og)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,d,causal,window,cap", GRAD_ROWS)
+def test_backward_algorithm_matches_autograd_and_jax(B, H, Hkv, Sq, Sk, d, causal, window,
+                                                     cap):
+    """The algorithm the CUDA backward runs (emulated), the op's CPU
+    backward (autograd through the plain version) and JAX's gradient of
+    its oracle ``attention_ref`` agree: each of dq, dk, dv within 1e-4 of
+    its largest |entry|."""
+    rng = np.random.default_rng(B * 1000 + Sq * 10 + Sk)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in
+              ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d), (B, H, Sq, d))]
+    q, k, v, dout = (torch.from_numpy(a) for a in arrays)
+    opts = dict(causal=causal, window=window, softcap=cap)
+    _, vjp = jax.vjp(lambda *t: attention_ref(*t, **opts), *map(jnp.asarray, arrays[:3]))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(arrays[3]))]
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    through_op = torch.autograd.grad(flash_attention(*qkv, **opts), qkv, dout)
+    emulated = _emulated_backward(q, k, v, dout, causal, window, cap)
+    plain = flash_attention_backward(q, k, v, None, None, dout, **opts)
+    for name, w, *gots in zip("qkv", want, through_op, emulated, plain):
+        bound = 1e-4 * max(float(np.abs(w).max()), 1e-30)
+        for got in gots:
+            assert float(np.abs(to_f32(got) - w).max()) <= bound, name
+
+
+def test_forward_writes_lse_only_when_a_gradient_will_be_taken():
+    """with_lse follows grad mode and requires_grad; the op's fake gives the
+    same shapes without computing."""
+    q, k, v = (torch.randn(s) for s in ((1, 2, 8, 16), (1, 1, 8, 16), (1, 1, 8, 16)))
+    _, lse = _flash_op(q, k, v, True, None, None, 0.25, False)
+    assert lse.numel() == 0
+    out, lse = _flash_op(q, k, v, True, None, None, 0.25, True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k.expand(1, 2, 8, 16)) * 0.25
+    s = s.masked_fill(~torch.ones(8, 8, dtype=torch.bool).tril(), NEG_INF)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(), rtol=1e-6)
+    with torch.device("meta"):
+        fq, fk = torch.empty(2, 4, 5, 32), torch.empty(2, 2, 7, 32)
+        fo, fl = _flash_op(fq, fk, fk, False, None, None, 0.1, True)
+    assert fo.shape == fq.shape and fl.shape == (2, 4, 5) and fl.device.type == "meta"
+    qr = q.clone().requires_grad_(True)
+    assert flash_attention(qr, k, v).grad_fn is not None
+    with torch.no_grad():
+        assert flash_attention(qr, k, v).grad_fn is None
+    assert torch.equal(flash_attention_backward_plain(q, k, v, q)[0],
+                       flash_attention_backward(q, k, v, None, None, q)[0])

@@ -22,6 +22,10 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.decode_attention.ops import launch_splits
 from repro_torch.kernels.diag_recurrence.ops import plan_recurrence
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention_backward,
+    flash_attention_backward_plain,
+)
 
 FLASH_ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap): tests/test_kernels.py:29-35
     (2, 4, 2, 256, 64, True, None, None),
@@ -314,3 +318,111 @@ def test_diag_recurrence_kernel_matches_plain():
         assert torch.equal(h_final, h_all[:, -1])
         np.testing.assert_allclose(h_final.cpu().numpy(), ref_final.cpu().numpy(),
                                    atol=1e-4, rtol=1e-4)
+
+
+# (B, H, Hkv, Sq, Sk, d, causal, window, softcap): the backward's cases, fp32
+FLASH_GRAD_ROWS = [
+    (1, 16, 16, 256, 256, 64, True, None, None),     # qwen1.5-0.5b's heads
+    (2, 8, 2, 200, 200, 128, True, 50, 30.0),        # GQA, window, softcap
+    (1, 4, 1, 130, 130, 256, True, 64, None),        # recurrentgemma's d=256, g=4
+    (1, 4, 2, 70, 300, 120, False, None, None),      # d=120, Sq != Sk (cross)
+    (1, 2, 2, 70, 70, 32, True, 0, None),            # every key masked
+    (1, 4, 2, 150, 100, 64, True, None, 50.0),       # Sq > Sk, causal
+]
+GRAD_TOL = 1e-4     # of the largest |gradient| in each of dq, dk, dv
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_matches_plain():
+    """The backward kernels against torch.autograd.grad through the plain
+    version: dq, dk, dv each within 1e-4 of its largest |entry|, reached
+    through autograd (one forward with the rows' log-sum-exp, one backward
+    launch, counted) and through the wrapper directly."""
+    dev = _card()
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    for (B, H, Hkv, Sq, Sk, d, causal, window, cap) in FLASH_GRAD_ROWS:
+        q, k, v = (torch.randn(shape, generator=gen).to(dev).requires_grad_(True)
+                   for shape in ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
+        dout = torch.randn((B, H, Sq, d), generator=gen).to(dev)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+        out = flash_attention(q, k, v, **opts)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == fwd + 1
+        assert flash_attention_backward.launches == bwd + 1
+        ref = flash_attention_backward_plain(q, k, v, dout, **opts)
+        for name, g, r in zip("qkv", grads, ref):
+            assert torch.isfinite(g).all(), name
+            bound = GRAD_TOL * float(r.abs().max())
+            assert float((g - r).abs().max()) <= bound, (name, (B, H, Hkv, Sq, Sk, d))
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_is_reproducible_and_bf16_raises():
+    """No atomics: two backwards give equal bits. bf16 has no backward on the
+    card: a forward that needs a gradient raises, as does the backward."""
+    dev = _card()
+    gen = torch.Generator(device="cpu").manual_seed(22)
+    q, k, v = (torch.randn(s, generator=gen).to(dev) for s in
+               ((1, 8, 333, 64), (1, 2, 333, 64), (1, 2, 333, 64)))
+    dout = torch.randn(q.shape, generator=gen).to(dev)
+    out = flash_attention(*(t.requires_grad_(True) for t in (q, k, v)))
+    g1 = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    g2 = torch.autograd.grad(out, (q, k, v), dout)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    qb, kb, vb = (t.detach().to(torch.bfloat16) for t in (q, k, v))
+    with pytest.raises(TypeError):
+        flash_attention(qb.requires_grad_(True), kb, vb)
+    lse = torch.zeros(q.shape[:3], device=dev)
+    with pytest.raises(TypeError):
+        flash_attention_backward(qb, kb, vb, qb, lse, qb)
+    with torch.no_grad():                        # serving's bf16 forward still runs
+        assert flash_attention(qb, kb, vb).dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+def test_kernels_without_backward_refuse_grad():
+    """decode_attention and page_gather have no backward on the card: a CUDA
+    input that requires a gradient raises while grad mode is on, and runs
+    under no_grad."""
+    dev = _card()
+    q = torch.randn((2, 4, 64), device=dev)
+    kc = torch.randn((2, 2, 64, 64), device=dev)
+    valid = torch.ones(64, dtype=torch.bool, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention(q.clone().requires_grad_(True), kc, kc.clone(), valid)
+    pool = torch.randn((8, 256), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        page_gather(pool, torch.tensor([1, 3], dtype=torch.int32))
+    with torch.no_grad():
+        decode_attention(q.clone().requires_grad_(True), kc, kc.clone(), valid)
+        page_gather(pool, torch.tensor([1, 3], dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_diag_recurrence_backward_on_both_routes():
+    """The reversed-time backward launches the kernel (counted as a backward
+    launch, on the route the planner picks for the shape) and agrees with
+    autograd through the plain loop within 1e-4 of each gradient's largest
+    entry, on the sequential and the chunked route."""
+    dev = _card()
+    rng = np.random.default_rng(23)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (B, S, C) in [(1, 64, 32768), (1, 300, 2560)]:
+        a, b, h0 = (torch.from_numpy(x.astype(np.float32)).to(dev).requires_grad_(True)
+                    for x in (rng.uniform(0.5, 1.0, (B, S, C)),
+                              rng.standard_normal((B, S, C)), rng.standard_normal((B, C))))
+        g_all = torch.from_numpy(rng.standard_normal((B, S, C)).astype(np.float32)).to(dev)
+        g_fin = torch.from_numpy(rng.standard_normal((B, C)).astype(np.float32)).to(dev)
+        route = plan_recurrence(B, S, C, n_sms).route
+        before = dict(diag_recurrence.launches_by_pass)
+        h_all, h_fin = diag_recurrence(a, b, h0)
+        grads = torch.autograd.grad((h_all, h_fin), (a, b, h0), (g_all, g_fin))
+        torch.cuda.synchronize()
+        assert diag_recurrence.launches_by_pass["backward"] == before["backward"] + 1
+        r_all, r_fin = diag_recurrence_plain(a, b, h0)
+        ref = torch.autograd.grad((r_all, r_fin), (a, b, h0), (g_all, g_fin))
+        for name, g, r in zip(("a", "b", "h0"), grads, ref):
+            bound = 1e-4 * float(r.abs().max())
+            assert float((g - r).abs().max()) <= bound, (name, route)
