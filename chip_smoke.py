@@ -103,7 +103,20 @@ checks them:
 16. training recurrentgemma-2b at full width and one pattern unit (B=1,
    S=2560, past the 2048 window), 3 steps: both kernels' backward;
 17. export: qwen1.5-0.5b's prefill_logits (B=1, S=64, bf16) through
-   torch.export to bytes and back, its logits bitwise equal to eager.
+   torch.export to bytes and back, its logits bitwise equal to eager;
+18. sharded: 4 ranks share the card over gloo (NCCL refuses two ranks on one
+   device), each case on its own ("data", "model") mesh, fp32, held against
+   the same config on one rank on the card: (a) qwen3-1.7b serving at full
+   width and depth on 1 x 4 (kv heads split 8/4), prefill + 8 teacher-forced
+   decode steps within 1e-3 of max |logit|; (b) the same at batch 1 on 2 x 2,
+   the caches' positions split over data, the lse merge on the card; (c) one
+   qwen1.5-0.5b train step (B=4, S=1024, remat=unit) on 2 x 2, loss within
+   1e-5 relative, parameters within 1e-3, 24 flash forwards, recomputes and
+   backwards a rank; (d) falcon-mamba-7b at 2 of 64 layers on 1 x 4,
+   prefill 512 + 8 decode steps within 1e-3, the recurrence route per rank;
+   (e) moonshot-v1-16b-a3b at 2 of 48 layers on 1 x 4 (16 experts a rank),
+   one forward within 1e-3 where its routing agrees. Each rank's peak
+   memory and seconds are printed; a failing rank fails the phase.
 
 Each phase prints its seconds. The launch counters are set to 0 just before
 each driven path (phases 4, 5, 7-14, 16) and read just after; a kernel the
@@ -1971,6 +1984,391 @@ def phase_aot(device, tag: str = "17") -> dict:
             "load_s": t_load, "first_call_s": t_first, "warmup_forward_s": t_warm}
 
 
+# ---------------------------------------------------------------------------------
+# 18. sharded on the card: several ranks over gloo on the one H100
+# ---------------------------------------------------------------------------------
+
+SHARD_RANKS = 4
+SHARD_TIMEOUT = 600        # s: the ranks' start, each collective, and the whole phase
+SHARD_TRAIN_TOL = 1e-5     # relative, the loss of one step against one rank's
+SHARD_PARAM_TOL = 1e-3     # the parameters after it (tests/test_sharded_exec.py's bar)
+# case -> (arch, layers (None: all), (data, model), work); the shapes below
+SHARD_CASES = {
+    "18a": ("qwen3_1_7b", None, (1, 4), "serve"),
+    "18b": ("qwen3_1_7b", None, (2, 2), "serve"),
+    "18c": ("qwen1_5_0_5b", None, (2, 2), "train"),
+    "18d": ("falcon_mamba_7b", 2, (1, 4), "serve"),
+    "18e": ("moonshot_v1_16b_a3b", 2, (1, 4), "forward"),
+}
+# serve cases: batch, prompt, teacher-forced decode steps, cache positions
+SHARD_SERVE = {"18a": (2, 256, 8, 512), "18b": (1, 256, 8, 384), "18d": (1, 512, 8, 520)}
+SHARD_MOONSHOT_SEQ = 256
+SHARD_REDUCED = False      # a CPU rehearsal sets it: every case at its reduced config
+
+
+def _shard_cfg(case: str):
+    from repro_torch.configs import get_config, get_reduced
+    arch, layers, _, _ = SHARD_CASES[case]
+    if SHARD_REDUCED:
+        return get_reduced(arch)
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def _shard_params(cfg, device, par=None):
+    """The case's fp32 parameters from seed 0, whole, or this rank's shards."""
+    import torch
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.transformer import init_params
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg, torch.float32)
+    if par is None:
+        return params, None
+    specs = sh.param_pspecs(cfg, params, par.tp)
+    local = sh.shard_tree(params, specs, par)
+    del params
+    return local, specs
+
+
+def _shard_serve(params, cfg, tokens, P, C, device, par=None):
+    """Logits (K+1, B, V) of the prefill's last position and of decode steps
+    fed tokens[:, P:-1] (teacher-forced), on one rank or sharded (``par``:
+    each rank's rows and vocab block gathered), and the times: the prefill's
+    seconds, the median step's ms (the logits' gather included) and the
+    all_reduces of the last step (count, bytes)."""
+    import statistics
+    import torch
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.transformer import decode_step, forward
+    B = tokens.shape[0]
+    pb = par.for_batch(B) if par is not None else None
+    covers = pb is not None and pb.batch_covers and pb.dp > 1
+    toks = tokens.to(device)
+    if covers:
+        n = B // pb.dp
+        toks = toks[pb.dp_rank * n:(pb.dp_rank + 1) * n]
+
+    def whole(lg):
+        lg = sh.gather_vocab(lg, pb)
+        return sh.gather_dim(lg.contiguous(), 0, "data", pb) if covers else lg
+
+    sync(device)
+    t0 = time.perf_counter()
+    logits, st = forward(params, toks[:, :P], cfg, make_state=True, state_len=C,
+                         logits_slice=1, par=pb)
+    rows = [whole(logits[:, -1])[:, : cfg.vocab_size]]
+    sync(device)
+    stats = {"prefill_s": time.perf_counter() - t0}
+    steps = []
+    for i in range(P, toks.shape[1] - 1):
+        t0, calls, nbytes = time.perf_counter(), sh.all_reduce.calls, sh.all_reduce.bytes
+        lg, st = decode_step(params, st, toks[:, i:i + 1], cfg, par=pb)
+        rows.append(whole(lg)[:, : cfg.vocab_size])
+        sync(device)
+        steps.append(time.perf_counter() - t0)
+        stats["step_all_reduces"] = sh.all_reduce.calls - calls
+        stats["step_all_reduce_bytes"] = sh.all_reduce.bytes - nbytes
+    stats["step_ms"] = statistics.median(steps) * 1e3
+    return torch.stack(rows), stats
+
+
+def _shard_batch(cfg, B, S, device, par=None):
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline, batch_to_torch
+    b = SyntheticTokenPipeline.batch_at(cfg, DataConfig(global_batch=B, seq_len=S, seed=0),
+                                        0)
+    if par is not None:
+        n = B // par.dp
+        b = {k: v[par.dp_rank * n:(par.dp_rank + 1) * n] for k, v in b.items()}
+    return batch_to_torch(b, device)
+
+
+def _shard_train_step(cfg, par=None):
+    from repro_torch.models.api import make_train_step
+    return make_train_step(cfg, peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS, remat="unit",
+                           par=par)
+
+
+def shard_references(device, refs: str, tag: str = "18") -> None:
+    """Each case on one rank, on this card, into ``refs``: serve logits, the
+    train step's loss and parameters, moonshot's logits and routing."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.models.transformer import forward
+    from repro_torch.optim import adamw_init
+    for case, (arch, _, _, work) in SHARD_CASES.items():
+        cfg = _shard_cfg(case)
+        t0 = time.perf_counter()
+        params, _ = _shard_params(cfg, device)
+        ref = {}
+        if work == "serve":
+            B, P, K, C = SHARD_SERVE[case]
+            rng = np.random.default_rng(int(case[2:], 16))
+            ref["tokens"] = torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, (B, P + K)).astype(np.int64))
+            logits, ref["times"] = _shard_serve(params, cfg, ref["tokens"], P, C, device)
+            ref["logits"] = logits.cpu()
+        elif work == "train":
+            B, S = TRAIN_SHAPE
+            batch, opt = _shard_batch(cfg, B, S, device), adamw_init(params)
+            sync(device)
+            t1 = time.perf_counter()
+            new, _, m = _shard_train_step(cfg)(params, opt, batch, 0)
+            sync(device)
+            ref["times"] = {"step_s": time.perf_counter() - t1}
+            ref["loss"] = float(m["loss"])
+            ref["params"] = {k: v.cpu() for k, v in flatten_with_keys(new)}
+            del new
+        else:
+            tokens = torch.randint(0, cfg.vocab_size, (1, SHARD_MOONSHOT_SEQ),
+                                   generator=torch.Generator().manual_seed(28))
+            sync(device)
+            t1 = time.perf_counter()
+            with RouteRecorder() as routes:
+                logits = forward(params, tokens.to(device), cfg)
+            sync(device)
+            ref["times"] = {"forward_s": time.perf_counter() - t1}
+            ref["logits"] = logits[:, :, : cfg.vocab_size].cpu()
+            ref["tokens"] = tokens
+            ref["routes"] = [(gt.cpu(), i.cpu()) for gt, i in routes.calls]
+        sync(device)
+        torch.save(ref, os.path.join(refs, f"{case}.pt"))
+        log(f"[{case}] one-rank reference: {arch}, {cfg.n_layers} layers fp32, "
+            f"{time.perf_counter() - t0:.1f} s; {json.dumps(ref.get('times', {}))}")
+        del params, ref
+        free_device(case)
+
+
+def _rank_case(case: str, rank: int, device, refs: str) -> dict:
+    """One case on this rank: the driven path counted, then its checks."""
+    import torch
+    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.kernels.diag_recurrence.ops import plan_recurrence
+    from repro_torch.kernels.flash_attention.ops import flash_attention_backward
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.transformer import forward
+    from repro_torch.optim import adamw_init
+    arch, _, (dp, tp), work = SHARD_CASES[case]
+    cfg = _shard_cfg(case)
+    par = sh.Parallel.of(make_local_mesh(tp, device.type), cfg)
+    ref = torch.load(os.path.join(refs, f"{case}.pt"), mmap=True, weights_only=False)
+    kernels = kernel_fns()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, specs = _shard_params(cfg, device, par)
+    out = {"mesh": [dp, tp], "seq_axes": None}
+    reset_counts(kernels.values())
+    if work == "serve":
+        B, P, K, C = SHARD_SERVE[case]
+        if not cfg.is_attention_free:
+            out["seq_axes"] = par.for_batch(B).seq_axes
+        got, out["times"] = _shard_serve(params, cfg, ref["tokens"], P, C, device, par)
+        counts = {k: v.launches for k, v in kernels.items()}
+        want = ref["logits"].to(device)
+        out["rel_err"] = float((got - want).abs().max()) / float(want.abs().max())
+        if cfg.ssm_state:
+            n_sms = (torch.cuda.get_device_properties(device).multi_processor_count
+                     if device.type == "cuda" else 132)
+            out["recurrence_plan"] = str(plan_recurrence(
+                B, min(P, 256), cfg.d_inner // tp * cfg.ssm_state, n_sms))
+            out["recurrence_routes"] = dict(kernels["diag_recurrence"].launches_by_route)
+    elif work == "train":
+        B, S = TRAIN_SHAPE
+        batch, opt = _shard_batch(cfg, B, S, device, par), adamw_init(params)
+        sync(device)
+        t1, calls, nbytes = time.perf_counter(), sh.all_reduce.calls, sh.all_reduce.bytes
+        new, _, m = _shard_train_step(cfg, par)(params, opt, batch, 0)
+        sync(device)
+        out["times"] = {"step_s": time.perf_counter() - t1,
+                        "step_all_reduces": sh.all_reduce.calls - calls,
+                        "step_all_reduce_bytes": sh.all_reduce.bytes - nbytes}
+        counts = {k: v.launches for k, v in kernels.items()}
+        flash = kernels["flash_attention"]
+        out["flash_per_step"] = {"forward": flash.launches_by_pass["forward"],
+                                 "recompute": flash.launches_by_pass["recompute"],
+                                 "backward": flash_attention_backward.launches}
+        out["local_heads"] = new["unit"][0]["attn"]["wq"].shape[-1] // cfg.resolved_head_dim
+        out["loss"], out["ref_loss"] = float(m["loss"]), ref["loss"]
+        flat_specs = dict(flatten_with_keys(specs))
+        worst = 0.0
+        for k, v in flatten_with_keys(new):
+            want = sh.shard_leaf(k, ref["params"][k], flat_specs[k], par).to(device)
+            worst = max(worst, float((v - want).abs().max()))
+        out["param_err"] = worst
+    else:
+        sync(device)
+        t1, calls, nbytes = time.perf_counter(), sh.all_reduce.calls, sh.all_reduce.bytes
+        with RouteRecorder() as routes:
+            logits = forward(params, ref["tokens"].to(device), cfg, par=par)
+        sync(device)
+        out["times"] = {"forward_s": time.perf_counter() - t1,
+                        "all_reduces": sh.all_reduce.calls - calls,
+                        "all_reduce_bytes": sh.all_reduce.bytes - nbytes}
+        counts = {k: v.launches for k, v in kernels.items()}
+        got = sh.gather_vocab(logits, par)[:, :, : cfg.vocab_size]
+        alike = torch.ones(got.shape[1], dtype=torch.bool, device=device)
+        for (_, i), (_, ir) in zip(routes.calls, ref["routes"]):
+            alike &= (i[0].sort(-1).values == ir[0].to(device).sort(-1).values).all(-1)
+        want = ref["logits"].to(device)
+        diff = (got[0] - want[0]).abs().amax(dim=-1)
+        out["alike"], out["positions"] = int(alike.sum()), int(alike.numel())
+        out["layers_routed"] = len(routes.calls)
+        out["rel_err"] = (float(diff[alike].max()) / float(want.abs().max())
+                          if bool(alike.any()) else float("inf"))
+    out["counts"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(device) / 1e9
+                      if device.type == "cuda" else 0.0)
+    del params, ref
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_shapes() -> dict:
+    """The module constants a rank reads (a CPU rehearsal shrinks them in the
+    parent; the spawned ranks import this file afresh)."""
+    return {k: globals()[k] for k in ("SHARD_REDUCED", "SHARD_SERVE",
+                                      "SHARD_MOONSHOT_SEQ", "TRAIN_SHAPE")}
+
+
+def shard_rank(rank: int, world: int, init_file: str, refs: str, device_type: str,
+               shapes: dict) -> None:
+    """One of the phase's ranks: every case in turn, each on its own mesh;
+    results into ``refs/rank<r>.json``. Any exception ends the rank with a
+    non-zero code, which fails the phase."""
+    globals().update(shapes)
+    import torch
+    from repro_torch.launch.mesh import init_ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_ranks(rank, world, f"file://{init_file}", device_type,
+                        timeout_s=SHARD_TIMEOUT)
+    results = {}
+    for case in SHARD_CASES:
+        results[case] = _rank_case(case, rank, device, refs)
+        r = results[case]
+        log(f"[{case} r{rank}] {r['seconds']:.1f} s, peak {r['peak_gb']:.2f} GB, "
+            f"launches {r['counts']}" + (f", recurrence {r['recurrence_plan']} "
+                                          f"{r['recurrence_routes']}"
+                                          if "recurrence_plan" in r else ""))
+    import torch.distributed as dist
+    results["backend"] = dist.get_backend()
+    with open(os.path.join(refs, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def phase_sharded(device, tmp: str, tag: str = "18") -> dict:
+    """The cases of SHARD_CASES on SHARD_RANKS ranks sharing this card over
+    gloo (NCCL refuses two ranks on one device; with a card a rank, as on a
+    four-card host, the ranks take NCCL), each case on its own
+    ("data", "model") mesh, fp32, held against the same config on one rank
+    on this card: serving logits within SERVE_LOGIT_TOL of max |logit|
+    (qwen3-1.7b at 1 x 4 with its kv heads split 8/4; at batch 1 on 2 x 2 with
+    the cache's positions split over data, the lse merge on the card;
+    falcon-mamba-7b at 2 of 64 layers, its recurrence over d_inner*N/4
+    channels a rank), one qwen1.5-0.5b train step at 2 x 2 (loss within
+    SHARD_TRAIN_TOL relative, parameters within SHARD_PARAM_TOL), and
+    moonshot-v1-16b-a3b at 2 of 48 layers, 16 experts a rank, where its
+    routing agrees. The times are collective round trips through the host
+    (gloo), not a tensor-parallel speed."""
+    import multiprocessing
+    refs = os.path.join(tmp, "sharded")
+    os.makedirs(refs, exist_ok=True)
+    t0 = time.perf_counter()
+    shard_references(device, refs, tag)
+    log(f"[{tag}] one-rank references {time.perf_counter() - t0:.1f} s")
+    ctx = multiprocessing.get_context("spawn")
+    t1 = time.perf_counter()
+    procs = [ctx.Process(target=shard_rank, args=(r, SHARD_RANKS, os.path.join(refs, "rdv"),
+                                                   refs, device.type, _shard_shapes()))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+            expect(not failed, f"phase {tag}: rank(s) {failed} failed")
+            expect(time.perf_counter() - t1 < SHARD_TIMEOUT,
+                   f"phase {tag}: the ranks ran past {SHARD_TIMEOUT} s")
+            time.sleep(0.5)
+        codes = [p.exitcode for p in procs]
+        expect(codes == [0] * SHARD_RANKS, f"phase {tag}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(refs, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    import torch
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    log(f"[{tag}] {SHARD_RANKS} ranks, backend {ranks[0]['backend']}, on {cards} card(s): "
+        f"{time.perf_counter() - t1:.1f} s from start to exit")
+    return check_sharded(ranks, tag)
+
+
+def check_sharded(ranks: list, tag: str = "18") -> dict:
+    """The phase's checks, over every rank's results."""
+    from repro_torch.configs import get_config
+    counts, out = {}, {}
+    for case, (arch, _, mesh, work) in SHARD_CASES.items():
+        rs = [r[case] for r in ranks]
+        r0 = rs[0]
+        for r in rs:
+            for k, v in r["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        summary = {"mesh": r0["mesh"], "seq_axes": r0["seq_axes"],
+                   "seconds": max(r["seconds"] for r in rs), "times": r0["times"],
+                   "peak_gb": [round(r["peak_gb"], 3) for r in rs]}
+        want = {"serve": ("flash_attention", "decode_attention"),
+                "train": ("flash_attention", "flash_attention_backward"),
+                "forward": ("flash_attention",)}[work]
+        if arch == "falcon_mamba_7b":
+            want = ("diag_recurrence",)
+        for k in want:
+            expect(all(r["counts"][k] > 0 for r in rs),
+                   f"[{case}] {k} was not launched on every rank: "
+                   f"{[r['counts'][k] for r in rs]}")
+        if work == "serve":
+            summary["rel_err"] = r0["rel_err"]
+            expect(r0["rel_err"] <= SERVE_LOGIT_TOL,
+                   f"[{case}] sharded logits differ from one rank's by {r0['rel_err']} of "
+                   f"max |logit| > {SERVE_LOGIT_TOL}")
+            if "recurrence_plan" in r0:
+                summary["recurrence"] = [r["recurrence_plan"] for r in rs]
+                summary["recurrence_routes"] = [r["recurrence_routes"] for r in rs]
+        elif work == "train":
+            n_layers = get_config(arch).n_layers if not SHARD_REDUCED else None
+            rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+            summary.update(loss=r0["loss"], ref_loss=r0["ref_loss"], loss_rel_err=rel,
+                           param_err=max(r["param_err"] for r in rs),
+                           flash=r0["flash_per_step"], local_heads=r0["local_heads"])
+            expect(rel <= SHARD_TRAIN_TOL, f"[{case}] loss {r0['loss']} vs one rank's "
+                   f"{r0['ref_loss']}: {rel} > {SHARD_TRAIN_TOL}")
+            expect(summary["param_err"] <= SHARD_PARAM_TOL,
+                   f"[{case}] parameters after the step differ by {summary['param_err']}")
+            if n_layers:
+                expect(r0["flash_per_step"] == dict.fromkeys(r0["flash_per_step"], n_layers),
+                       f"[{case}] flash launches a rank {r0['flash_per_step']}, not "
+                       f"{n_layers} each")
+        else:
+            summary.update(alike=r0["alike"], positions=r0["positions"],
+                           rel_err=r0["rel_err"])
+            expect(r0["alike"] > 0 and r0["rel_err"] <= SERVE_LOGIT_TOL,
+                   f"[{case}] moonshot sharded logits differ by {r0['rel_err']} of max "
+                   f"|logit| where routed alike ({r0['alike']} positions)")
+        log(f"[{case}] {arch} on data {mesh[0]} x model {mesh[1]}: {json.dumps(summary)}")
+        out[case] = summary
+    out["counts"] = counts
+    return out
+
+
 def _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, label: str):
     """Times flash_attention at one shape beside its plain version and SDPA
     (given the explicit mask where a window cuts keys), with the bound from
@@ -2312,6 +2710,9 @@ def main() -> int:
         peaks.append(free_device("16"))
         aot = timed("17", phase_aot, device)
         peaks.append(free_device("17"))
+        sharded = timed("18", phase_sharded, device, tmp)
+        path_counts["sharded"] = sharded.pop("counts")
+        peaks.append(free_device("18"))
     launches = {k: sum(c.get(k, 0) for c in path_counts.values()) for k in kernel_fns()}
     log(f"[6] launches on the main paths: {launches}")
     path_counts["whisper-cross"] = path_counts["whisper"]
@@ -2346,6 +2747,7 @@ def main() -> int:
     log(f"[15] rollback summary: {json.dumps(rollback)}")
     log(f"[16] recurrentgemma-2b training summary: {json.dumps(griffin_train)}")
     log(f"[17] export summary: {json.dumps(aot)}")
+    log(f"[18] sharded summary: {json.dumps(sharded)}")
     log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory {max(peaks) / 1e9:.2f} GB")
     print(card, flush=True)

@@ -19,6 +19,12 @@ either package restores in the other.
 
 :meth:`Checkpointer.restore` returns CPU tensors; the caller moves them to
 its device.
+
+:class:`ShardedCheckpointer` is the same format for a run sharded over a
+mesh of ranks: a save gathers the global arrays (``models/sharding.
+gather_tree``) and rank 0 writes them; a restore reads the global arrays on
+every rank and cuts each rank's shard for the *current* mesh, so a run may
+resume on another mesh shape (elastic restart).
 """
 from __future__ import annotations
 
@@ -159,6 +165,10 @@ class Checkpointer:
             shutil.rmtree(os.path.join(self.cfg.directory, f"step_{s}"),
                           ignore_errors=True)
 
+    def latest(self) -> Optional[int]:
+        """The latest complete step in the directory, or None."""
+        return latest_step(self.cfg.directory)
+
     def restore(self, step: Optional[int], like: Dict[str, Any]
                 ) -> Optional[Dict[str, Any]]:
         """CPU tensor trees with the ``like`` structures, plus the manifest
@@ -175,4 +185,45 @@ class Checkpointer:
         out = {name: _load_tree(tree, path, manifest, name, self.cfg.verify_on_restore)
                for name, tree in like.items()}
         out["__manifest__"] = manifest
+        return out
+
+
+class ShardedCheckpointer(Checkpointer):
+    """Checkpoints of trees sharded over a mesh of ranks (``par``, a
+    ``models.sharding.Parallel``), each tree named in ``specs`` with its
+    PartitionSpec tree. Every method is collective: all ranks call it in the
+    same order. On disk it is :class:`Checkpointer`'s format, global arrays
+    written by rank 0, so either package restores it."""
+
+    def __init__(self, cfg: CheckpointConfig, par: Any, specs: Dict[str, Any], device):
+        import torch.distributed as dist
+        super().__init__(cfg)
+        self.par, self.specs, self.device = par, specs, device
+        self.rank = dist.get_rank()
+
+    def save(self, step: int, trees: Dict[str, Any],
+             extra: Optional[Dict[str, Any]] = None) -> None:
+        from repro_torch.models.sharding import gather_tree
+        full = {name: gather_tree(tree, self.specs[name], self.par)
+                for name, tree in trees.items()}
+        if self.rank == 0:
+            super().save(step, full, extra)
+
+    def latest(self) -> Optional[int]:
+        """Rank 0's answer, on every rank."""
+        from repro_torch.models.sharding import broadcast_object
+        self.wait()
+        return broadcast_object(super().latest())
+
+    def restore(self, step: Optional[int], like: Dict[str, Any]
+                ) -> Optional[Dict[str, Any]]:
+        """Each rank's shards of the global arrays (CPU tensors), cut for the
+        current mesh, once rank 0's last write has finished."""
+        from repro_torch.models.sharding import barrier, shard_tree
+        self.wait()
+        barrier(self.device)
+        out = super().restore(step, like)
+        if out is not None:
+            for name in like:
+                out[name] = shard_tree(out[name], self.specs[name], self.par)
         return out

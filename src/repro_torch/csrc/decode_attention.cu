@@ -49,6 +49,11 @@
 //   weigh a -inf max as exactly 0 and never form -inf - (-inf). Split 0 holds
 //   lo, so it is never empty and its max is finite. A second kernel merges
 //   the splits of each head when n_splits > 1, against the max over them.
+// - The logsumexp of each head's scores, m + log(l), goes to `lse` when a
+//   pointer is passed (the one-split kernel, or the merge): a position-split
+//   cache's ranks merge their partial results with it. A row with no valid
+//   slot gives about NEG_INF there, so such a partial weighs 0 beside a live
+//   one.
 // - A head dim that is not a power of two (h2o-danube3's 120) is padded in
 //   shared memory only: q and the K/V tiles are DP = pow2ceil(D) wide, their
 //   columns D..DP-1 zeros (cp.async fills them without reading), so the
@@ -189,7 +194,8 @@ template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const uint8_t* __restrict__ valid,
-                    T* __restrict__ out, float* __restrict__ part, int Hkv, int S,
+                    T* __restrict__ out, float* __restrict__ part,
+                    float* __restrict__ lse, int Hkv, int S,
                     int valid_stride, float scale, int has_softcap, float softcap,
                     int n_splits) {
   using C = Cfg<T, D, G>;
@@ -470,6 +476,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t hd = static_cast<size_t>(bh) * G + gi;   // b * H + h
     if (n_splits == 1) {
       out[hd * D + c] = from_f<T>(a / fmaxf(sm_l[gi], 1e-30f));
+      if (lse != nullptr && c == 0) lse[hd] = sm_m[gi] + logf(sm_l[gi]);
     } else {
       float* p = part + (hd * n_splits + split) * (D + 2);
       if (c == 0) {
@@ -492,8 +499,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // its blocks start while the split kernel runs and wait for its results.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
-decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int D,
-                      int n_splits) {
+decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                      float* __restrict__ lse, int D, int n_splits) {
   constexpr int kPre = 8;
   extern __shared__ float sh[];                // weights (n_splits), then kCombineThreads
   __shared__ float s_l;
@@ -539,7 +546,10 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int D
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(kFull, l, o);
-    if (lane == 0) s_l = l;
+    if (lane == 0) {
+      s_l = l;
+      if (lse != nullptr) lse[head] = mx + logf(l);
+    }
   }
   __syncthreads();
   float aa = 0.f;
@@ -581,6 +591,7 @@ struct Args {
   const uint8_t* valid;
   void* out;
   float* part;
+  float* lse;
   int B, H, Hkv, S, valid_stride;
   float scale;
   int has_softcap;
@@ -596,7 +607,7 @@ int launch(const Args& a) {
   dim3 grid(a.n_splits, a.B * a.Hkv);
   decode_split_kernel<T, D, G><<<grid, kThreads, Cfg<T, D, G>::BYTES, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.valid, static_cast<T*>(a.out), a.part, a.Hkv, a.S, a.valid_stride, a.scale,
+      a.valid, static_cast<T*>(a.out), a.part, a.lse, a.Hkv, a.S, a.valid_stride, a.scale,
       a.has_softcap, a.softcap, a.n_splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_splits == 1) return static_cast<int>(err);
@@ -611,7 +622,8 @@ int launch(const Args& a) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, decode_combine_kernel<T>, static_cast<const float*>(a.part),
-                           static_cast<T*>(a.out), static_cast<int>(D), a.n_splits);
+                           static_cast<T*>(a.out), a.lse, static_cast<int>(D),
+                           a.n_splits);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -659,11 +671,13 @@ int with_config(int dtype, int D, int G, F&& f) {
 // dtype: 0 = float32, 1 = bfloat16. q (B,H,D), k/v (B,Hkv,S,D), out like q, all
 // contiguous and 16-byte aligned; valid uint8 with row stride valid_stride (0 for
 // one (S,) row shared by the batch, S for (B,S)); part: n_splits > 1 only,
-// B*H*n_splits*(D+2) floats of scratch. Each (b, kv head) row's live extent is
-// cut into n_splits shares on the device. Returns cudaGetLastError() after the
+// B*H*n_splits*(D+2) floats of scratch; lse: null, or B*H floats that take each
+// head's logsumexp of its scores. Each (b, kv head) row's live extent is cut
+// into n_splits shares on the device. Returns cudaGetLastError() after the
 // launches.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* valid, void* out, void* part, int B,
+                                       const void* valid, void* out, void* part,
+                                       void* lse, int B,
                                        int H, int Hkv, int S, int D, int dtype,
                                        int valid_stride, float scale, int has_softcap,
                                        float softcap, int n_splits, void* stream) {
@@ -672,7 +686,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
       (n_splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, static_cast<const uint8_t*>(valid), out, static_cast<float*>(part),
-               B, H, Hkv, S, valid_stride, scale, has_softcap, softcap, n_splits,
+               static_cast<float*>(lse), B, H, Hkv, S, valid_stride, scale, has_softcap, softcap, n_splits,
                static_cast<cudaStream_t>(stream)};
   return with_config(dtype, D, H / Hkv, [&](auto tag) {
     using Tg = decltype(tag);

@@ -16,7 +16,11 @@ on the device, into ``n_splits`` shares (:func:`split_range`); the host picks
 sync. Each block streams its share through a ring of shared-memory stages
 with ``cp.async``, computes all ``g`` grouped heads from each K/V tile, keeps
 the online softmax in fp32, and skips tiles whose slots are all invalid; a
-second kernel merges the splits.
+second kernel merges the splits. With ``return_lse`` the wrappers also
+return each head's logsumexp of its scores, ``(B, H)`` fp32, which a cache
+whose positions are split over ranks merges with
+(``models/sharding.combine_attention``); the kernel writes it only when its
+pointer is passed.
 """
 from __future__ import annotations
 
@@ -45,10 +49,12 @@ _count_lock = threading.Lock()
 
 
 def decode_attention_plain(q, k_cache, v_cache, valid, *, softcap=None,
-                           scale=None) -> torch.Tensor:
+                           scale=None, return_lse: bool = False):
     """Plain PyTorch version, mirroring ``decode_attention/ref.py``: fp32
     einsum, softcap, finite ``NEG_INF`` mask, softmax, einsum, cast. ``valid``
-    is ``(S,)`` or ``(B, S)``."""
+    is ``(S,)`` or ``(B, S)``. With ``return_lse``: ``(out, lse)``, lse the
+    logsumexp of the masked scores, ``(B, H)`` fp32 (about ``NEG_INF`` for a
+    row with no valid slot)."""
     B, H, d = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     g = H // Hkv
@@ -60,8 +66,10 @@ def decode_attention_plain(q, k_cache, v_cache, valid, *, softcap=None,
     mask = valid.bool().reshape(-1 if valid.dim() == 2 else 1, 1, 1, S)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
-    return out.reshape(B, H, d).to(q.dtype)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float()).reshape(B, H, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H)
+    return out
 
 
 def check_shape(d: int, group: int) -> None:
@@ -97,7 +105,7 @@ def split_range(lo: int, hi: int, split: int, n_splits: int,
 @functools.lru_cache(maxsize=None)
 def _launch_fn():
     fn = library("decode_attention").decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -122,9 +130,10 @@ def blocks_per_sm(device_index: int, d: int, dtype: torch.dtype, g: int) -> int:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      valid: torch.Tensor, *, softcap: Optional[float] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, return_lse: bool = False):
     """Attention of q ``(B, H, d)`` over a cache ``(B, Hkv, S, d)`` where
-    ``valid`` (``(S,)`` or ``(B, S)``, bool or integer) marks the live slots.
+    ``valid`` (``(S,)`` or ``(B, S)``, bool or integer) marks the live slots;
+    with ``return_lse``, ``(out, lse)`` (see :func:`decode_attention_plain`).
 
     CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch the
     kernel (contiguous, 16-byte aligned fp32 or bf16, (d, g) in
@@ -151,7 +160,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise ValueError("q, cache and mask must be on one device")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, valid, softcap=softcap,
-                                      scale=scale)
+                                      scale=scale, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     refuse_grad("decode_attention", q, k_cache, v_cache)
@@ -167,12 +176,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     fit = blocks_per_sm(q.device.index if q.device.index is not None
                         else torch.cuda.current_device(), d, q.dtype, H // Hkv)
     return launch_splits(q, k_cache, v_cache, valid, plan_splits(B, Hkv, S, n_sms, fit),
-                         softcap=softcap, scale=scale)
+                         softcap=softcap, scale=scale, return_lse=return_lse)
 
 
 def launch_splits(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   valid: torch.Tensor, n_splits: int, *, softcap: Optional[float] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None, return_lse: bool = False):
     """Launch the kernel on CUDA tensors that :func:`decode_attention` has
     checked, with ``n_splits`` blocks per (batch, kv head) row (the planner's
     choice there; other counts for a sweep). Counted in
@@ -184,12 +193,14 @@ def launch_splits(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     out = torch.empty_like(q)
     part = (torch.empty(B * H * n_splits * (d + 2), dtype=torch.float32,
                         device=q.device) if n_splits > 1 else None)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     with on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = _launch_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                               mask.data_ptr(), out.data_ptr(),
                               part.data_ptr() if part is not None else None,
+                              lse.data_ptr() if lse is not None else None,
                               B, H, Hkv, S, d, _DTYPE_CODES[q.dtype],
                               S if valid.dim() == 2 else 0, float(scale),
                               int(softcap is not None),
@@ -198,7 +209,7 @@ def launch_splits(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     check(status, "decode_attention")
     with _count_lock:
         decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

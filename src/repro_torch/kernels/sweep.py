@@ -17,7 +17,8 @@ an idle device, as serving calls them (no gradient). Through the public
 wrappers only, so the same file times an earlier tree's as ``--main`` does.
 
 ``--main`` times both kernels at the main paths' shapes through their public
-wrappers only, on three clocks: device time with a warm L2, device time with
+wrappers only (decode_attention also with its lse written, where the tree
+has that output), on three clocks: device time with a warm L2, device time with
 a cold L2, and host-paced (back-to-back calls without the sleep ahead, so a
 call shorter than its wrapper's host work reads the host's pace). Since it
 calls nothing else of the package, the same file, copied into an earlier
@@ -204,6 +205,12 @@ def time_main(device, rows: list) -> None:
                       lambda q=q, k=k, v=v, m=valid: dec.decode_attention(q, k, v, m),
                       [lambda q=q, kv=kv, m=valid: dec.decode_attention(q, *kv, m)
                        for kv in copies]))
+        if "return_lse" in dec.decode_attention.__code__.co_varnames:   # the lse output
+            cases.append(("decode_attention", label + "+lse", (moved, ops, q.dtype),
+                          lambda q=q, k=k, v=v, m=valid: dec.decode_attention(
+                              q, k, v, m, return_lse=True),
+                          [lambda q=q, kv=kv, m=valid: dec.decode_attention(
+                              q, *kv, m, return_lse=True) for kv in copies]))
     for label, (B, S, C) in RECURRENCE_CASES.items():
         a = torch.rand((B, S, C), generator=gen, device=device) * 0.5 + 0.5
         b = torch.randn((B, S, C), generator=gen, device=device)

@@ -23,10 +23,24 @@ a transpose; the reference keeps them ``(B, Senc, Hkv, hd)``.
 
 Dtypes: where activations and cache or weights differ, the port promotes as
 JAX does (``layers.promote`` / ``layers.matmul``).
+
+Under tensor parallelism (``par``; ``models/sharding.py``) a rank projects
+its block of q heads when the heads divide the model axis, and its block of
+kv heads when those do; ``wo`` is row-parallel, then ``g``. Where the kv
+heads are replicated beside sharded q heads, a prefill passes k and v
+through ``f`` and hands the kernel the kv heads its q heads use (a slice, or
+one kv head per q head where its q heads split a group unevenly), so the
+kernel sees a uniform group. A decode cache whose positions are split over
+``data`` or ``model`` (``sharding.decode_state_pspecs``) is attended rank by
+rank over its own slots; each rank's ``(out, lse)`` are merged with
+:func:`~repro_torch.models.sharding.combine_attention`, and only the rank
+that owns the new token's ring slot writes it. Where the positions are
+split over ``model`` while the q heads are too, each rank first gathers all
+q heads, attends them over its slots, and keeps its own heads for ``wo``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +48,7 @@ from repro_torch.kernels.decode_attention import decode_attention as decode_kern
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import LOCAL_ATTN, ArchConfig
 from repro_torch.models.layers import _he, _zeros, apply_rope, matmul, promote
+from repro_torch.models.sharding import Parallel, combine_attention, f, g, gather_dim, tp_of
 
 
 class KVCache(NamedTuple):
@@ -67,21 +82,50 @@ def _qk_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tenso
     return (xf * (1.0 + scale.float())).to(x.dtype)
 
 
-def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig):
-    """Returns q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd)."""
-    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = matmul(xq, params["wq"])
-    k = matmul(xkv, params["wk"])
-    v = matmul(xkv, params["wv"])
+def _sharded(par: Optional[Parallel]) -> Tuple[bool, bool]:
+    """(q heads split over model, kv heads split over model)."""
+    if tp_of(par) == 1:
+        return False, False
+    caps = par.caps
+    return caps["shard_q"], caps["shard_kv"]
+
+
+def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
+                 par: Optional[Parallel] = None):
+    """Returns q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd): with ``par``, H and Hkv are
+    this rank's heads where they are split (the projections' columns are)."""
+    shard_q, shard_kv = _sharded(par)
+    hd = cfg.resolved_head_dim
+    q = matmul(f(xq, par) if shard_q else xq, params["wq"])
+    xk = f(xkv, par) if shard_kv else xkv
+    k = matmul(xk, params["wk"])
+    v = matmul(xk, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(*xq.shape[:-1], h, hd)
-    k = k.reshape(*xkv.shape[:-1], hk, hd)
-    v = v.reshape(*xkv.shape[:-1], hk, hd)
+    q = q.reshape(*xq.shape[:-1], -1, hd)
+    k = k.reshape(*xkv.shape[:-1], -1, hd)
+    v = v.reshape(*xkv.shape[:-1], -1, hd)
     if "q_norm" in params:
-        q = _qk_rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        k = _qk_rmsnorm(k, params["k_norm"], cfg.norm_eps)
+        q_norm = f(params["q_norm"], par) if shard_q else params["q_norm"]
+        k_norm = f(params["k_norm"], par) if shard_kv else params["k_norm"]
+        q = _qk_rmsnorm(q, q_norm, cfg.norm_eps)
+        k = _qk_rmsnorm(k, k_norm, cfg.norm_eps)
     return q, k, v
+
+
+def _kv_for_local_q(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, par: Parallel):
+    """Replicated k/v (B, S, Hkv, hd) -> the kv heads this rank's q heads use,
+    in a uniform group: a slice where its q heads cover whole groups or lie
+    in one, else one kv head per q head."""
+    g_ = cfg.n_heads // cfg.n_kv_heads
+    h0, h1 = par.span(cfg.n_heads)
+    idx = [h // g_ for h in range(h0, h1)]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    gl = (h1 - h0) // n
+    if gl * n == h1 - h0 and idx == [first + i // gl for i in range(h1 - h0)]:
+        return k[:, :, first:first + n], v[:, :, first:first + n]
+    at = torch.tensor(idx, device=k.device)
+    return k.index_select(2, at), v.index_select(2, at)
 
 
 # ---------------------------------------------------------------------------------
@@ -116,10 +160,25 @@ def build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, capacity: int) ->
     return KVCache(kc, vc, k_pos.expand(B, C).contiguous())
 
 
+def shard_slots(cache: KVCache, par: Optional[Parallel]) -> KVCache:
+    """This rank's block of a cache's slots where its positions are split
+    (``par.seq_axes``); the cache itself otherwise."""
+    if par is None or par.seq_axes is None:
+        return cache
+    s0, s1 = par.span(cache.k.shape[2], par.seq_axes)
+    return KVCache(cache.k[:, :, s0:s1].clone(), cache.v[:, :, s0:s1].clone(),
+                   cache.k_pos[:, s0:s1].clone())
+
+
 def empty_cache(cfg: ArchConfig, layer_type: str, batch: int, seq_len: int, dtype,
-                device=None) -> KVCache:
+                device=None, par: Optional[Parallel] = None) -> KVCache:
+    """With ``par``: this rank's kv heads and block of slots."""
     C = cache_capacity(cfg, layer_type, seq_len)
     hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if par is not None:
+        if _sharded(par)[1]:
+            hk //= par.tp
+        C //= par.block(par.seq_axes)[0]
     return KVCache(
         torch.zeros((batch, hk, C, hd), dtype=dtype, device=device),
         torch.zeros((batch, hk, C, hd), dtype=dtype, device=device),
@@ -132,22 +191,39 @@ def _positions(pos, batch: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1).expand(batch)
 
 
-def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, pos) -> KVCache:
+def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, pos,
+                 par: Optional[Parallel] = None) -> KVCache:
     """Write one token per batch row at its ring slot ``pos_b % C`` (per-slot
     positions: continuous batching). k_new/v_new: (B, 1, Hkv, hd); pos: scalar
     or (B,).
 
     The reference builds a new cache with a masked select; the port writes the
     slot in place (three small index writes instead of a copy of the cache per
-    layer per step) and returns the same, updated cache.
+    layer per step) and returns the same, updated cache. Where ``par`` splits
+    the positions, the cache holds this rank's block of the C slots and only
+    the rank that owns a row's slot writes it (the others write back what
+    they hold: no host sync to decide).
     """
-    B, Hkv, C, hd = cache.k.shape
+    B, Hkv, Cl, hd = cache.k.shape
     pos_b = _positions(pos, B, cache.k.device)
-    slot = pos_b % C
     rows = torch.arange(B, device=cache.k.device)
-    cache.k[rows, :, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[rows, :, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.k_pos[rows, slot] = pos_b.to(torch.int32)
+    count, index = par.block(par.seq_axes) if par is not None else (1, 0)
+    if count == 1:
+        slot = pos_b % Cl
+        cache.k[rows, :, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[rows, :, slot] = v_new[:, 0].to(cache.v.dtype)
+        cache.k_pos[rows, slot] = pos_b.to(torch.int32)
+        return cache
+    local = pos_b % (Cl * count) - index * Cl
+    mine = (local >= 0) & (local < Cl)
+    slot = local.clamp(0, Cl - 1)
+    keep = mine[:, None, None]
+    cache.k[rows, :, slot] = torch.where(keep, k_new[:, 0].to(cache.k.dtype),
+                                         cache.k[rows, :, slot])
+    cache.v[rows, :, slot] = torch.where(keep, v_new[:, 0].to(cache.v.dtype),
+                                         cache.v[rows, :, slot])
+    cache.k_pos[rows, slot] = torch.where(mine, pos_b.to(torch.int32),
+                                          cache.k_pos[rows, slot])
     return cache
 
 
@@ -169,17 +245,32 @@ def decode_attention(
     window: Optional[int],
     attn_softcap: Optional[float],
     decode_fn: Callable = decode_kernel,
+    par: Optional[Parallel] = None,
 ) -> torch.Tensor:
     """The new token's attention over the cache -> (B, 1, H, hd).
 
     ``decode_fn`` is the core over q (B, H, hd) and the cache: the kernel
     wrapper by default, or its plain version to check the kernel path. q and
-    the cache enter it in their promoted dtype.
+    the cache enter it in their promoted dtype. Where ``par`` splits the
+    cache's positions, the core also returns its lse and the ranks' partial
+    results are merged (:func:`~repro_torch.models.sharding.combine_attention`);
+    where they are split over ``model`` while q's heads are too, all heads
+    are gathered first and this rank's are kept after the merge.
     """
     B, _, H, hd = q.shape
     valid = decode_valid(cache.k_pos, pos, window)
+    seq_axes = par.seq_axes if par is not None else None
+    gather_q = seq_axes is not None and "model" in seq_axes and _sharded(par)[0]
+    if gather_q:
+        q = gather_dim(q.contiguous(), 2, "model", par)
     qh, k, v = promote(q[:, 0].contiguous(), cache.k, cache.v)
-    out = decode_fn(qh, k, v, valid, softcap=attn_softcap)
+    if seq_axes is None:
+        return decode_fn(qh, k, v, valid, softcap=attn_softcap).reshape(B, 1, H, hd)
+    out, lse = decode_fn(qh, k, v, valid, softcap=attn_softcap, return_lse=True)
+    out = combine_attention(out, lse, par.group(seq_axes))
+    if gather_q:
+        h0, h1 = par.span(out.shape[1])
+        out = out[:, h0:h1]
     return out.reshape(B, 1, H, hd)
 
 
@@ -198,26 +289,35 @@ def attention_prefill(
     attention_fn: Callable = flash_attention,
     make_cache: bool = False,
     state_len: Optional[int] = None,   # total cache capacity (prompt + generation)
+    par: Optional[Parallel] = None,
 ):
     """Projections + rope + attention core + out-projection -> (B, S, D), or
     ``(out, KVCache)`` with ``make_cache``.
 
     ``attention_fn`` is the core over (B, H, S, hd) tensors: the kernel
-    wrapper by default, or its plain version to check the kernel path.
+    wrapper by default, or its plain version to check the kernel path. With
+    ``par`` the core runs at this rank's heads and the cache is this rank's
+    part of the decode state.
     """
-    q, k, v = _project_qkv(params, x, x, cfg)
+    shard_q, shard_kv = _sharded(par)
+    q, k, v = _project_qkv(params, x, x, cfg, par)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    kc, vc = k, v                                 # the cache keeps what the state holds
+    if shard_q and not shard_kv:
+        k, v = _kv_for_local_q(f(k, par), f(v, par), cfg, par)
     window: Optional[int] = cfg.window if layer_type == LOCAL_ATTN else None
     out = attention_fn(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(),
         causal=causal, window=window, softcap=cfg.attn_logit_softcap)
     out = matmul(out.transpose(1, 2).reshape(*x.shape[:-1], -1), params["wo"])
+    if shard_q:
+        out = g(out, par)
     if not make_cache:
         return out
     cap = cache_capacity(cfg, layer_type, max(state_len or 0, x.shape[1]))
-    return out, build_cache_from_prefill(k, v, cap)
+    return out, shard_slots(build_cache_from_prefill(kc, vc, cap), par)
 
 
 def attention_decode(
@@ -229,19 +329,22 @@ def attention_decode(
     layer_type: str,
     *,
     decode_fn: Callable = decode_kernel,
+    par: Optional[Parallel] = None,
 ):
     """One token's attention sublayer -> ``(out (B, 1, D), cache)``; the
     cache is updated in place (:func:`update_cache`)."""
-    q, k, v = _project_qkv(params, x, x, cfg)
+    q, k, v = _project_qkv(params, x, x, cfg, par)
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos_arr = pos_t.reshape(-1, 1) if pos_t.dim() else pos_t[None]     # (B,1) | (1,)
     q = apply_rope(q, pos_arr, cfg.rope_theta)
     k = apply_rope(k, pos_arr, cfg.rope_theta)
-    cache = update_cache(cache, k, v, pos_t)
+    cache = update_cache(cache, k, v, pos_t, par)
     window = cfg.window if layer_type == LOCAL_ATTN else None
     out = decode_attention(q, cache, pos_t, window=window,
-                           attn_softcap=cfg.attn_logit_softcap, decode_fn=decode_fn)
-    return matmul(out.reshape(*x.shape[:-1], -1), params["wo"]), cache
+                           attn_softcap=cfg.attn_logit_softcap, decode_fn=decode_fn,
+                           par=par)
+    out = matmul(out.reshape(*x.shape[:-1], -1), params["wo"])
+    return (g(out, par) if _sharded(par)[0] else out), cache
 
 
 # ---------------------------------------------------------------------------------

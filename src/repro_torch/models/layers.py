@@ -4,6 +4,12 @@ Port of ``repro.models.layers``: plain functions ``apply(params, x, ...)`` over
 dicts of tensors, with params made by a matching ``init_*`` that draws from a
 ``torch.Generator`` on the generator's device. Activations run in the
 parameter dtype; norms and rotary embeddings in fp32, as in the reference.
+
+Under tensor parallelism (``par``, a :class:`~repro_torch.models.sharding.
+Parallel` with a model axis > 1) the embedding is vocab-parallel (each rank
+holds a block of rows of ``tok`` and of columns of ``head``), and the MLP is
+column-parallel into its hidden width and row-parallel out of it, with the
+Megatron pair ``f``/``g`` around both.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import Parallel, f, g, tp_of
 
 
 def promote(*xs: torch.Tensor):
@@ -119,7 +126,13 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, dtype, lead=()) -> dict:
             "w_out": _he(gen, (*lead, f, d), f, dtype)}
 
 
-def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, kind: str,
+        par: Optional[Parallel] = None) -> torch.Tensor:
+    """With ``par`` and a sharded hidden width the weights are this rank's
+    columns of ``w_gate``/``w_in`` and rows of ``w_out``: ``f`` before, ``g``
+    after."""
+    if tp_of(par) > 1 and par.caps["shard_ff"]:
+        return g(mlp(params, f(x, par), kind), par)
     if kind in ("swiglu", "geglu"):
         gate = matmul(x, params["w_gate"])
         act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
@@ -144,19 +157,32 @@ def init_embedding(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
     return p
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = params["tok"][tokens.long()]
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                 par: Optional[Parallel] = None) -> torch.Tensor:
+    """With ``par``, ``tok`` holds this rank's block of rows: rows of tokens
+    in its range, zeros elsewhere, summed over the model ranks (``g``)."""
+    if tp_of(par) > 1:
+        tok = params["tok"]
+        local = tokens.long() - par.tp_rank * tok.shape[0]
+        mine = (local >= 0) & (local < tok.shape[0])
+        x = tok[local.clamp(0, tok.shape[0] - 1)] * mine[..., None].to(tok.dtype)
+        x = g(x, par)
+    else:
+        x = params["tok"][tokens.long()]
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
-def unembed(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def unembed(params: dict, x: torch.Tensor, cfg: ArchConfig,
+            par: Optional[Parallel] = None) -> torch.Tensor:
     """Logits in fp32; the product runs in the parameter dtype (the promoted
     one where the activations are wider) and is cast afterwards, as in the
-    reference."""
+    reference. With ``par`` they are this rank's block of the padded
+    vocabulary, ``(..., Vp / tp)``: ``head`` holds its columns, ``tok`` its
+    rows; the softcap is elementwise and stays local."""
     table = params["head"] if "head" in params else params["tok"].T
-    logits = matmul(x, table).float()
+    logits = matmul(f(x, par), table).float()
     return softcap(logits, cfg.final_logit_softcap)
 
 

@@ -16,18 +16,28 @@ Where the reference leaves an order to the library, the port fixes it:
 them in a fixed order instead of adding through a scatter, so a run on the
 card gives the same bits every time (CUDA's scatter-add uses atomics). The
 per-expert products are plain ``torch`` products, as the reference leaves
-them to XLA; no Pallas kernel is involved. The reference's sharding
-constraints do nothing on one device and are not ported.
+them to XLA; no Pallas kernel is involved.
+
+Under tensor parallelism (``par``) routing, capacity and the drop-by-rank
+stay replicated and identical on every rank. With ``shard_experts`` a rank
+holds ``n_experts_padded / tp`` experts and runs their products over the
+slots routed to them; with only ``shard_expert_ff`` it holds a block of
+every expert's hidden width. Either way the combine gives partial sums that
+meet in ``g``; the token activations entering the experts and the gate
+weights entering the combine pass through ``f``. The aux loss is replicated,
+not summed over ranks. The reference's ``_maybe_constrain`` is an XLA layout
+hint and has no counterpart.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _he, promote
+from repro_torch.models.sharding import Parallel, f, g, tp_of
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype, lead=()) -> dict:
@@ -56,8 +66,12 @@ def top_k(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
-            no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            no_drop: bool = False, par: Optional[Parallel] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux loss fp32 scalar)."""
+    caps = par.caps if tp_of(par) > 1 else {}
+    split_e = caps.get("shard_experts", False)
+    split = split_e or caps.get("shard_expert_ff", False)
     B, S, D = x.shape
     E_real, K, E = cfg.n_experts, cfg.top_k, cfg.n_experts_padded
     C = expert_capacity(cfg, S, no_drop=no_drop)
@@ -87,9 +101,15 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     slot_tok.scatter_(1, slot, t_sorted)
     slot_tok = slot_tok[:, :E * C]
 
-    x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    e0, El = 0, E                                   # this rank's experts
+    if split_e:
+        e0, e1 = par.span(E)
+        El = e1 - e0
+        slot_tok = slot_tok[:, e0 * C:(e0 + El) * C]
+    xin = f(x, par) if split else x
+    x_pad = torch.cat([xin, xin.new_zeros((B, 1, D))], dim=1)
     rows = torch.arange(B, device=dev)[:, None]
-    xe = x_pad[rows, slot_tok].reshape(B, E, C, D)
+    xe = x_pad[rows, slot_tok].reshape(B, El, C, D)
 
     # ---- batched per-expert FFN
     if cfg.mlp in ("swiglu", "geglu"):
@@ -102,12 +122,19 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
         xe_i, w_in = promote(xe, params["w_in"])
         h = F.gelu(torch.einsum("becd,edf->becf", xe_i, w_in), approximate="tanh")
     h, w_out = promote(h, params["w_out"])
-    ye = torch.einsum("becf,efd->becd", h, w_out)                       # (B, E, C, D)
+    ye = torch.einsum("becf,efd->becd", h, w_out)                      # (B, El, C, D)
 
     # ---- combine: each token's K outputs gathered back to token order and
-    # summed, weighted (a dropped assignment reads the zero row E*C)
+    # summed, weighted (a dropped assignment, or one to another rank's
+    # expert, reads the zero row El*C)
     slot_of = torch.empty_like(slot).scatter_(1, order, slot)          # (B, S*K)
-    ye_pad = torch.cat([ye.reshape(B, E * C, D), ye.new_zeros((B, 1, D))], dim=1)
+    if split_e:
+        local = slot_of - e0 * C
+        slot_of = torch.where((local >= 0) & (local < El * C), local, El * C)
+    ye_pad = torch.cat([ye.reshape(B, El * C, D), ye.new_zeros((B, 1, D))], dim=1)
     w_flat = top_w.reshape(B, S * K).to(x.dtype)
+    if split:
+        w_flat = f(w_flat, par)
     contrib = (ye_pad[rows, slot_of] * w_flat[..., None]).to(x.dtype)   # (B, S*K, D)
-    return contrib.reshape(B, S, K, D).sum(dim=2), aux
+    out = contrib.reshape(B, S, K, D).sum(dim=2)
+    return (g(out, par) if split else out), aux

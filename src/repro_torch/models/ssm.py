@@ -12,6 +12,15 @@ update in plain tensor ops, as in the reference. State per layer:
 
 The reference's ``REPRO_PERF_BASELINE`` branch (an environment-gated unfused
 copy of the same numbers) is not ported.
+
+Under tensor parallelism (``par``) a rank holds a block of the d_inner
+channels: matching columns of ``in_proj``'s x half and z half (the logical
+shard, ``models/sharding.py``), its rows of ``conv_w``, ``conv_b``, ``D``,
+``dt_bias``, ``A_log``, ``x_proj`` and ``out_proj``, and its columns of
+``dt_proj``. ``x_proj`` is row-parallel and followed by ``g``, so dt, B and
+C are whole on every rank and enter its channels through ``f``;
+``out_proj`` is row-parallel, then ``g``. The recurrence runs over the
+rank's d_inner / tp * N channels.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.diag_recurrence import diag_recurrence
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _he, _zeros, matmul
+from repro_torch.models.sharding import Parallel, f, g, tp_of
 from repro_torch.models.recurrence import (
     causal_conv1d,
     causal_conv1d_step,
@@ -58,15 +68,23 @@ def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype, lead=()) -> dict:
     }
 
 
-def _ssm_inputs(params: dict, x: torch.Tensor):
-    """Shared projections. x: (B, S, D) -> (x_in, z), (B, S, d_inner) each."""
-    return matmul(x, params["in_proj"]).chunk(2, dim=-1)
+def _split(par: Optional[Parallel]) -> bool:
+    return tp_of(par) > 1 and par.caps["shard_inner"]
 
 
-def _selective_terms(params: dict, x_conv: torch.Tensor, cfg: ArchConfig):
+def _ssm_inputs(params: dict, x: torch.Tensor, par: Optional[Parallel] = None):
+    """Shared projections. x: (B, S, D) -> (x_in, z), (B, S, d_inner) each
+    (this rank's channels with ``par``)."""
+    return matmul(f(x, par) if _split(par) else x, params["in_proj"]).chunk(2, dim=-1)
+
+
+def _selective_terms(params: dict, x_conv: torch.Tensor, cfg: ArchConfig,
+                     par: Optional[Parallel] = None):
     """x_conv: (B, S, di) post conv+silu -> a, b (B, S, di, n) fp32 and C_t."""
     n, r = cfg.ssm_state, cfg.resolved_dt_rank
     proj = matmul(x_conv, params["x_proj"])                    # (B, S, r+2n)
+    if _split(par):
+        proj = f(g(proj, par), par)
     dt_r, b_ssm, c_ssm = proj.split([r, n, n], dim=-1)
     dt = F.softplus(matmul(dt_r, params["dt_proj"]).float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])                            # (di, n)
@@ -83,6 +101,7 @@ def ssm_prefill(
     make_state: bool = False,
     chunk: int = 256,
     recurrence_fn: Callable = diag_recurrence,
+    par: Optional[Parallel] = None,
 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """``(out (B, S, D), state or None)``; one ``recurrence_fn`` call per
     chunk (the kernel wrapper by default, or its plain version).
@@ -93,18 +112,21 @@ def ssm_prefill(
     (ROADMAP.md queue 3); the outputs agree.
     """
     B, S, _ = x.shape
-    di, n = cfg.d_inner, cfg.ssm_state
-    x_in, z = _ssm_inputs(params, x)
+    n = cfg.ssm_state
+    x_in, z = _ssm_inputs(params, x, par)
+    di = x_in.shape[-1]
     x_conv = F.silu(causal_conv1d(x_in, params["conv_w"], params["conv_b"]))
     h = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
     ys = []
     for c0 in range(0, S, chunk):
-        a, b, c_ssm = _selective_terms(params, x_conv[:, c0:c0 + chunk], cfg)
+        a, b, c_ssm = _selective_terms(params, x_conv[:, c0:c0 + chunk], cfg, par)
         h_all, h = chunked_diag_recurrence(a, b, h, recurrence_fn=recurrence_fn)
         ys.append(torch.einsum("bsdn,bsn->bsd", h_all, c_ssm.float()))
     y = torch.cat(ys, dim=1)
     y = (y + params["D"] * x_conv.float()).to(x.dtype)
     out = matmul(y * F.silu(z), params["out_proj"])
+    if _split(par):
+        out = g(out, par)
     state = None
     if make_state:
         state = SSMState(h=h, conv=conv_tail(x_in, cfg.d_conv))
@@ -116,26 +138,31 @@ def ssm_decode(
     x: torch.Tensor,              # (B, 1, D)
     state: SSMState,
     cfg: ArchConfig,
+    par: Optional[Parallel] = None,
 ) -> Tuple[torch.Tensor, SSMState]:
     """One token. The reference returns a new state; the port writes ``h``
     and ``conv`` in place (cast to their dtypes) and returns the same state."""
-    x_in, z = _ssm_inputs(params, x)
+    x_in, z = _ssm_inputs(params, x, par)
     conv_out, conv_state = causal_conv1d_step(x_in, state.conv, params["conv_w"],
                                               params["conv_b"])
     x_conv = F.silu(conv_out)                                  # (B, 1, di)
-    a, b, c_ssm = _selective_terms(params, x_conv, cfg)
+    a, b, c_ssm = _selective_terms(params, x_conv, cfg, par)
     h = a[:, 0] * state.h + b[:, 0]                            # (B, di, n)
     y = torch.einsum("bdn,bn->bd", h, c_ssm[:, 0].float())
     y = (y + params["D"] * x_conv[:, 0].float()).to(x.dtype)[:, None]
     out = matmul(y * F.silu(z), params["out_proj"])
+    if _split(par):
+        out = g(out, par)
     state.h.copy_(h)
     state.conv.copy_(conv_state)
     return out, state
 
 
-def empty_ssm_state(cfg: ArchConfig, batch: int, dtype, device=None) -> SSMState:
+def empty_ssm_state(cfg: ArchConfig, batch: int, dtype, device=None,
+                    par: Optional[Parallel] = None) -> SSMState:
+    """With ``par``: this rank's channels."""
+    di = cfg.d_inner // par.tp if _split(par) else cfg.d_inner
     return SSMState(
-        h=torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                      device=device),
-        conv=torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+        h=torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype, device=device),
     )

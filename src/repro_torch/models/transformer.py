@@ -21,6 +21,14 @@ unit. The decode state keeps the same layout: per pattern position a
 encoder-decoder ``cross``: each unit's encoder keys and values,
 ``(n_units, B, Hkv, Senc, hd)`` (the reference orders the last three axes
 ``Senc, Hkv, hd``; the port keeps the cache layout its kernels read).
+
+Every entry point takes ``par``, a rank's place on a ``("data", "model")``
+mesh (:class:`~repro_torch.models.sharding.Parallel`), or None for one
+rank. With it the parameters are the rank's shards
+(``sharding.shard_tree``), the tokens its rows of the batch where the batch
+covers the data axis, logits come out as its block of the vocabulary
+(``sharding.gather_vocab`` joins them) and each rank builds and updates only
+its part of the decode state.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import GLOBAL_ATTN, LOCAL_ATTN, RECURRENT, SSM, ArchConfig
+from repro_torch.models.sharding import Parallel
 from repro_torch.models.layers import (
     embed_tokens,
     init_embedding,
@@ -111,15 +120,16 @@ def _index(tree: Any, i: int) -> Any:
 
 
 def _apply_mlp_part(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, *,
-                    decode: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                    decode: bool = False, par: Optional[Parallel] = None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The MLP sublayer, dense or mixture-of-experts: ``(x, aux)``, aux the
     experts' load-balancing loss (None for a dense MLP: no device work);
     decode routes with ``no_drop`` as the reference does."""
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.n_experts > 0:
-        out, aux = moe_mod.moe_ffn(p["moe"], h, cfg, no_drop=decode)
+        out, aux = moe_mod.moe_ffn(p["moe"], h, cfg, no_drop=decode, par=par)
     else:
-        out, aux = mlp(p["mlp"], h, cfg.mlp), None
+        out, aux = mlp(p["mlp"], h, cfg.mlp, par), None
     return x + out, aux
 
 
@@ -134,13 +144,15 @@ def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str
                  positions: torch.Tensor, attention_fn: Callable, recurrence_fn: Callable,
                  make_state: bool = False, state_len: Optional[int] = None,
                  rec_chunk: int = 256, causal: bool = True,
-                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 par: Optional[Parallel] = None):
     """Returns ``(x, layer state, aux)``, the state None unless
     ``make_state``, aux None without experts."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if ltype == SSM:                      # the Mamba block replaces attention and MLP
         out, st = ssm_mod.ssm_prefill(p["ssm"], h, cfg, make_state=make_state,
-                                      chunk=rec_chunk, recurrence_fn=recurrence_fn)
+                                      chunk=rec_chunk, recurrence_fn=recurrence_fn,
+                                      par=par)
         return x + out, st, None
     if ltype == RECURRENT:
         out, st = rglru_mod.rglru_prefill(p["rec"], h, cfg, make_state=make_state,
@@ -148,14 +160,14 @@ def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str
     else:
         out = attn.attention_prefill(p["attn"], h, cfg, ltype, positions, causal=causal,
                                      attention_fn=attention_fn, make_cache=make_state,
-                                     state_len=state_len)
+                                     state_len=state_len, par=par)
         out, st = out if make_state else (out, None)
     x = x + out
     if cross_kv is not None:
         hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
         x = x + attn.cross_attention(p["xattn"], hx, *cross_kv, cfg,
                                      attention_fn=attention_fn)
-    x, aux = _apply_mlp_part(p, x, cfg)
+    x, aux = _apply_mlp_part(p, x, cfg, par=par)
     return x, st, aux
 
 
@@ -224,6 +236,7 @@ def forward(
     rec_chunk: int = 256,                   # SSM positions expanded per recurrence call
     remat: str = "none",                    # none | unit | dots (training)
     return_aux: bool = False,               # also return the MoE aux loss
+    par: Optional[Parallel] = None,         # this rank's place on the mesh
 ):
     """Logits fp32 (B, S_total, Vp), or features (B, S_total, D) with
     ``return_features``.
@@ -245,12 +258,14 @@ def forward(
     matrix products' outputs, see :func:`_remat`) bounds a training step's
     activation memory; the encoder's layers are recomputed unless it is
     ``none``. The reference's attention ``q_chunk`` has no counterpart: the
-    attention core is the kernel.
+    attention core is the kernel. With ``par`` the logits are this rank's
+    block of the vocabulary, and a decode state needs ``par.batch``, the
+    global batch (``Parallel.for_batch``).
     """
     if make_state and remat != "none":
         raise ValueError("remat is for training: a forward that makes the decode "
                          "state keeps its activations")
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x = embed_tokens(params["embed"], tokens, cfg, par)
     enc_out = None
     if cfg.is_encoder_decoder:
         if frontend_embeds is None:
@@ -263,7 +278,7 @@ def forward(
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     run = dict(attention_fn=attention_fn, recurrence_fn=recurrence_fn,
-               make_state=make_state, state_len=state_len, rec_chunk=rec_chunk)
+               make_state=make_state, state_len=state_len, rec_chunk=rec_chunk, par=par)
     unit_states = [[] for _ in cfg.attn_pattern]
     cross_k, cross_v = [], []
 
@@ -298,7 +313,7 @@ def forward(
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    out = x if return_features else unembed(params["embed"], x, cfg)
+    out = x if return_features else unembed(params["embed"], x, cfg, par)
     if return_aux and aux_loss is None:
         aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     head = (out, aux_loss) if return_aux else (out,)
@@ -320,51 +335,60 @@ def forward(
 def _apply_layer_decode(p: Dict[str, Any], x: torch.Tensor, st, pos: torch.Tensor,
                         cfg: ArchConfig, ltype: str,
                         decode_fn: Callable = decode_attention,
-                        cross_kv: Optional[Tuple[torch.Tensor, ...]] = None):
+                        cross_kv: Optional[Tuple[torch.Tensor, ...]] = None,
+                        par: Optional[Parallel] = None):
     """One token through one layer; ``st`` is written in place. ``cross_kv``
     is the encoder's (keys, values, validity mask) for cross attention."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if ltype == SSM:
-        out, st = ssm_mod.ssm_decode(p["ssm"], h, st, cfg)
+        out, st = ssm_mod.ssm_decode(p["ssm"], h, st, cfg, par)
         return x + out, st
     if ltype == RECURRENT:
         out, st = rglru_mod.rglru_decode(p["rec"], h, st, cfg)
     else:
         out, st = attn.attention_decode(p["attn"], h, st, pos, cfg, ltype,
-                                        decode_fn=decode_fn)
+                                        decode_fn=decode_fn, par=par)
     x = x + out
     if cross_kv is not None:
         hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
         x = x + attn.cross_attention_decode(p["xattn"], hx, *cross_kv, cfg,
                                             decode_fn=decode_fn)
-    return _apply_mlp_part(p, x, cfg, decode=True)[0], st
+    return _apply_mlp_part(p, x, cfg, decode=True, par=par)[0], st
 
 
 def _empty_layer_state(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dtype,
-                       device=None):
+                       device=None, par: Optional[Parallel] = None):
     if ltype == SSM:
-        return ssm_mod.empty_ssm_state(cfg, batch, dtype, device)
+        return ssm_mod.empty_ssm_state(cfg, batch, dtype, device, par)
     if ltype == RECURRENT:
         return rglru_mod.empty_rglru_state(cfg, batch, dtype, device)
-    return attn.empty_cache(cfg, ltype, batch, seq_len, dtype, device)
+    return attn.empty_cache(cfg, ltype, batch, seq_len, dtype, device, par)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int,
-                      dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+                      dtype=torch.bfloat16, device=None,
+                      par: Optional[Parallel] = None) -> Dict[str, Any]:
     """An empty decode state for ``batch`` slots of ``seq_len`` positions on
     ``device`` (default: the current default device, the CPU unless set).
     Recurrent states keep ``h`` in fp32 whatever ``dtype`` is, as the
-    reference's do."""
+    reference's do. With ``par`` (whose global batch is ``batch``) it is
+    this rank's part: its rows where the batch covers the data axis, its kv
+    heads and channels where they split over ``model``, its block of a cache's
+    slots where the positions split (``sharding.decode_state_pspecs``)."""
     n_units = cfg.n_pattern_units
+    if par is not None:
+        par = par.for_batch(batch)
+        if par.batch_covers:
+            batch //= par.dp
 
     def stacked(st):
         if n_units == 0:
             return st
         return type(st)(*(leaf.expand(n_units, *leaf.shape).contiguous() for leaf in st))
 
-    unit = tuple(stacked(_empty_layer_state(cfg, t, batch, seq_len, dtype, device))
+    unit = tuple(stacked(_empty_layer_state(cfg, t, batch, seq_len, dtype, device, par))
                  for t in cfg.attn_pattern)
-    rem = tuple(_empty_layer_state(cfg, _ltype(cfg, i), batch, seq_len, dtype, device)
+    rem = tuple(_empty_layer_state(cfg, _ltype(cfg, i), batch, seq_len, dtype, device, par)
                 for i in range(cfg.n_remainder_layers))
     state = {"unit": unit, "rem": rem,
              "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -383,8 +407,10 @@ def decode_step(
     cfg: ArchConfig,
     *,
     decode_fn: Callable = decode_attention,
+    par: Optional[Parallel] = None,
 ):
-    """One autoregressive step. Returns ``(logits fp32 (B, Vp), new_state)``.
+    """One autoregressive step. Returns ``(logits fp32 (B, Vp), new_state)``
+    (with ``par``: this rank's block of Vp; ``par.batch`` the global batch).
 
     Caches and recurrent states are updated in place: the returned state
     holds the same tensors as ``state`` (with ``pos`` advanced in a new
@@ -393,7 +419,7 @@ def decode_step(
     plain version).
     """
     pos = state["pos"]                                    # (B,) per-slot positions
-    x = embed_tokens(params["embed"], token, cfg)
+    x = embed_tokens(params["embed"], token, cfg, par)
     cross = state.get("cross")
     if cfg.is_encoder_decoder:
         sin = sinusoidal_position_at(pos, cfg.d_model).to(x.dtype)   # (B, D) | (D,)
@@ -406,14 +432,14 @@ def decode_step(
             unit_st = state["unit"][i]
             st = type(unit_st)(*(leaf[u] for leaf in unit_st))     # views
             x, _ = _apply_layer_decode(_index(params["unit"][i], u), x, st, pos, cfg,
-                                       ltype, decode_fn, cross_kv=ck)
+                                       ltype, decode_fn, cross_kv=ck, par=par)
     new_rem = []
     for i in range(cfg.n_remainder_layers):
         x, st = _apply_layer_decode(params["rem"][i], x, state["rem"][i], pos, cfg,
-                                    _ltype(cfg, i), decode_fn)
+                                    _ltype(cfg, i), decode_fn, par=par)
         new_rem.append(st)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg)[:, 0]       # (B, Vp)
+    logits = unembed(params["embed"], x, cfg, par)[:, 0]  # (B, Vp)
     new_state = dict(state)                               # "unit" updated in place
     new_state["rem"] = tuple(new_rem)
     new_state["pos"] = pos + 1

@@ -6,12 +6,14 @@ checkpoints through the same machinery as the parameters. The arithmetic
 keeps the reference's order (clip, moments, bias correction, weight decay).
 The reference returns new trees; here the parameters, ``mu`` and ``nu`` are
 written in place (under ``torch.no_grad()``) to save a copy of each, and the
-returned trees hold the same tensors.
+returned trees hold the same tensors. Under tensor parallelism the moments
+are sharded like the parameters, and the clipping norm sums a sharded leaf's
+squares over the model ranks and counts a replicated leaf once.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,19 +43,35 @@ def adamw_init(params: Any) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares, in fp32."""
-    total = sum(torch.sum(torch.square(leaf.float())) for leaf in leaves(tree))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+def global_norm(tree: Any, sharded: Optional[Sequence[bool]] = None,
+                reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares, in fp32.
+    With ``sharded`` (per leaf: is it one rank's shard?) the shards' sum goes
+    through ``reduce`` (the sum over the ranks that hold the other shards)
+    and each replicated leaf counts once."""
+    flat = leaves(tree)
+    if sharded is None:
+        total = sum(torch.sum(torch.square(leaf.float())) for leaf in flat)
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    sq = [torch.sum(torch.square(leaf.float())) for leaf in flat]
+    part = torch.stack([s for s, sh in zip(sq, sharded) if sh] or [sq[0] * 0]).sum()
+    part = reduce(part)
+    rep = [s for s, sh in zip(sq, sharded) if not sh]
+    return torch.sqrt(part + (torch.stack(rep).sum() if rep else 0.0))
 
 
 @torch.no_grad()
 def adamw_update(grads: Any, opt_state: Dict[str, Any], params: Any, lr,
-                 cfg: AdamWConfig = AdamWConfig()) -> Tuple[Any, Dict[str, Any], dict]:
+                 cfg: AdamWConfig = AdamWConfig(), *,
+                 sharded: Optional[Sequence[bool]] = None,
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                 ) -> Tuple[Any, Dict[str, Any], dict]:
     """Returns ``(params, opt_state, metrics)``; ``params``, ``mu`` and ``nu``
     are updated in place. ``grads`` has the parameters' structure; ``lr`` is
-    a float or an fp32 scalar tensor."""
-    gnorm = global_norm(grads)
+    a float or an fp32 scalar tensor; ``sharded`` and ``reduce`` as in
+    :func:`global_norm`."""
+    gnorm = global_norm(grads, sharded, reduce)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     count = opt_state["count"] + 1
     c1 = 1.0 - cfg.b1 ** count.float()

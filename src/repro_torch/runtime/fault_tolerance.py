@@ -24,7 +24,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
-from repro_torch.checkpoint import CheckpointConfig, Checkpointer, latest_step
+from repro_torch.checkpoint import CheckpointConfig, Checkpointer
 from repro_torch.core.tree import TreeDef, leaves
 from repro_torch.kernels.build import KernelLaunchError
 from repro_torch.serving.scheduler import FleetScheduler
@@ -53,11 +53,14 @@ class TrainSupervisor:
 
     def __init__(self, cfg: SupervisorConfig,
                  train_step: Callable,                      # (p, o, batch, step) -> (p, o, m)
-                 batch_at: Callable[[int], Dict[str, Any]]):  # deterministic data access
+                 batch_at: Callable[[int], Dict[str, Any]],   # deterministic data access
+                 ckpt: Optional[Checkpointer] = None):        # else one from cfg.checkpoint
         self.cfg = cfg
         self.train_step = train_step
         self.batch_at = batch_at
-        self.ckpt = Checkpointer(cfg.checkpoint) if cfg.checkpoint else None
+        if ckpt is None and cfg.checkpoint:
+            ckpt = Checkpointer(cfg.checkpoint)
+        self.ckpt = ckpt
         self.restores = 0
         self.failures_seen = 0
 
@@ -78,7 +81,7 @@ class TrainSupervisor:
         step = start_step
         end = start_step + n_steps
         retries = 0
-        if self.ckpt is not None and latest_step(self.cfg.checkpoint.directory) is None:
+        if self.ckpt is not None and self.ckpt.latest() is None:
             # anchor: a failure before the first periodic save can still roll
             # back to the run's starting state
             self.ckpt.save(start_step, {"params": params, "opt_state": opt_state})

@@ -47,3 +47,247 @@ def frontend(cfg, batch: int, rng) -> dict:
         return {"patches": rng.standard_normal(
             (batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)}
     return {}
+
+
+# ---------------------------------------------------------------------------------
+# Several ranks on the CPU (gloo), for the sharded tests
+# ---------------------------------------------------------------------------------
+
+RANK_TIMEOUT = 240.0     # seconds for init_process_group, each collective and the join
+
+
+def _rank_entry(fn, rank: int, world: int, tmp: str, args: tuple, timeout: float):
+    import datetime
+    import os
+    import traceback
+
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'rdv')}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=timeout))
+        out = fn(rank, world, *args)
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args, timeout: float = RANK_TIMEOUT) -> list:
+    """``fn(rank, world, *args)`` in ``world`` spawned CPU processes joined
+    in a gloo process group (a file rendezvous, so parallel test workers
+    never share a port); each returns a picklable result. Returns the
+    results by rank. A rank that fails, or any rank still running after
+    ``timeout`` seconds, fails the call with the ranks' tracebacks."""
+    import multiprocessing
+    import os
+    import tempfile
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+        procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, tmp, args, timeout),
+                             daemon=True) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errors = ""
+        for r in range(world):
+            path = os.path.join(tmp, f"err{r}.txt")
+            if os.path.exists(path):
+                with open(path) as f:
+                    errors += f"--- rank {r}\n{f.read()}"
+        if hung or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"ranks hung: {hung}; exit codes "
+                                 f"{[p.exitcode for p in procs]}\n{errors[-6000:]}")
+        return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def sharded_exec_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of tests/test_torch_sharding.py's sharded run: the reduced
+    config ``job['arch']`` (``job['overrides']``) with the reference's
+    parameters (``job['params']``, keystr -> numpy) on a (dp, tp) mesh:
+
+    * ``job['train']`` (global batch): the loss and gradients, and the
+      parameters after one train step, gathered;
+    * ``job['decode']``: prefill of ``prompt`` then teacher-forced decode of
+      ``steps``, the logits of each, gathered;
+    * ``job['empty']``: the serve step's tokens from an empty state.
+
+    Every rank returns its replicated leaves' gradients; rank 0 also the
+    gathered results."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.pages import params_from_numpy
+    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.api import (loss_and_grads, make_serve_step,
+                                        make_serve_step_with_logits, make_train_step)
+    from repro_torch.models.transformer import forward, init_decode_state
+    from repro_torch.optim import adamw_init
+
+    cfg = get_reduced(job["arch"], **job.get("overrides", {}))
+    dp, tp = job["mesh"]
+    par = sh.Parallel.of(make_local_mesh(tp, "cpu"), cfg)
+    full = params_from_numpy(job["params"])
+    specs = sh.param_pspecs(cfg, full, tp)
+    out: dict = {"rank": rank}
+
+    def rows(a, batch_covers=True):
+        a = torch.from_numpy(np.asarray(a))
+        if not batch_covers:
+            return a
+        n = a.shape[0] // dp
+        return a[par.dp_rank * n:(par.dp_rank + 1) * n]
+
+    def whole_rows(t, covers):
+        return sh.gather_dim(t.contiguous(), 0, "data", par) if covers else t
+
+    if "decode" in job:
+        d = job["decode"]
+        prompt, steps = d["prompt"], d["steps"]
+        pb = par.for_batch(prompt.shape[0])
+        covers = pb.batch_covers
+        params = sh.shard_tree(full, specs, par)
+        logits, state = forward(params, rows(prompt, covers), cfg, make_state=True,
+                                state_len=d["state_len"], logits_slice=1, par=pb)
+        got = [whole_rows(sh.gather_vocab(logits[:, -1], pb), covers)]
+        serve = make_serve_step_with_logits(cfg, pb)
+        for i in range(steps.shape[1]):
+            lg, state = serve(params, state, rows(steps[:, i:i + 1], covers))
+            got.append(whole_rows(lg, covers))
+        out["decode"] = [x.numpy() for x in got]
+        out["seq_axes"] = pb.seq_axes
+    if "empty" in job:
+        B = job["empty"]["batch"]
+        pb = par.for_batch(B)
+        params = sh.shard_tree(full, specs, par)
+        state = init_decode_state(cfg, B, job["empty"]["state_len"], torch.float32,
+                                  par=pb)
+        tok, _ = make_serve_step(cfg, pb)(params, state,
+                                          rows(np.zeros((B, 1), np.int32), pb.batch_covers))
+        out["empty"] = whole_rows(tok, pb.batch_covers).numpy()
+    if "train" in job:
+        batch = {k: rows(v) for k, v in job["train"].items()}
+        params = sh.shard_tree(full, specs, par)
+        loss, parts, grads = loss_and_grads(params, batch, cfg, remat="none", par=par)
+        keys = [k for k, _ in flatten_with_keys(grads)]
+        mask = sh.sharded_mask(specs)
+        out["replicated_grads"] = {k: gr.numpy() for k, gr, m in
+                                   zip(keys, [x for _, x in flatten_with_keys(grads)], mask)
+                                   if not m}
+        gathered = sh.gather_tree(grads, specs, par)
+        out["loss"] = float(loss)
+        out["grads"] = {k: v.numpy() for k, v in flatten_with_keys(gathered)}
+        step = make_train_step(cfg, remat="none", total_steps=10, par=par)
+        new, _, m = step(params, adamw_init(params), batch, 0)
+        out["step_loss"] = float(m["loss"])
+        out["params"] = {k: v.numpy() for k, v in
+                         flatten_with_keys(sh.gather_tree(new, specs, par))}
+    if rank != 0:
+        for k in ("grads", "params", "decode", "empty"):
+            out.pop(k, None)
+    return out
+
+
+def launcher_rank(rank: int, world: int, argv: list) -> list:
+    """One rank of ``launch/train.main(argv)``: its history's losses."""
+    from repro_torch.launch.train import main
+    return [m["loss"] for m in main(argv)["history"]]
+
+
+def elastic_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of tests/test_torch_elastic.py (8 ranks): the reference run,
+    8 steps on a 4 x 2 mesh, and the elastic one, 4 steps on 4 x 2, a
+    checkpoint, a restore on 2 x 4 and 4 more steps. Rank 0 returns the
+    gathered parameters of both, their last losses and the global arrays it
+    saved."""
+    from repro_torch.checkpoint import CheckpointConfig, ShardedCheckpointer
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.pages import params_from_numpy
+    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.api import make_train_step
+    from repro_torch.optim import adamw_init
+
+    cfg = get_reduced(job["arch"], **job["overrides"])
+    data = DataConfig(global_batch=8, seq_len=16, seed=11)
+    step_fn = {}
+    wide = sh.Parallel.of(make_local_mesh(2, "cpu"), cfg)      # data 4 x model 2
+    narrow = sh.Parallel.of(make_local_mesh(4, "cpu"), cfg)    # data 2 x model 4
+    full = params_from_numpy(job["params"])
+
+    def run(params, opt, start, n, par):
+        fn = step_fn.setdefault(par.tp, make_train_step(cfg, remat="none",
+                                                         total_steps=12, par=par))
+        for s in range(start, start + n):
+            b = SyntheticTokenPipeline.batch_at(cfg, data, s)
+            k = 8 // par.dp
+            b = {key: torch.from_numpy(v[par.dp_rank * k:(par.dp_rank + 1) * k])
+                 for key, v in b.items()}
+            params, opt, m = fn(params, opt, b, s)
+        return params, opt, float(m["loss"])
+
+    def ckpt(par):
+        p_specs = sh.param_pspecs(cfg, full, par.tp)
+        return ShardedCheckpointer(CheckpointConfig(job["dir"], async_save=False), par,
+                                   {"params": p_specs, "opt_state": sh.opt_state_pspecs(
+                                       cfg, None, p_specs)}, torch.device("cpu"))
+
+    def gathered(params, par):
+        return {k: v.numpy() for k, v in flatten_with_keys(
+            sh.gather_tree(params, sh.param_pspecs(cfg, full, par.tp), par))}
+
+    p = sh.shard_tree(full, sh.param_pspecs(cfg, full, wide.tp), wide)
+    p_ref, _, loss_ref = run(p, adamw_init(p), 0, 8, wide)
+    out = {"ref": gathered(p_ref, wide), "loss_ref": loss_ref}
+
+    p = sh.shard_tree(full, sh.param_pspecs(cfg, full, wide.tp), wide)
+    p1, o1, _ = run(p, adamw_init(p), 0, 4, wide)
+    ckpt(wide).save(4, {"params": p1, "opt_state": o1})
+    out["saved"] = gathered(p1, wide)
+    like_p = sh.shard_tree(full, sh.param_pspecs(cfg, full, narrow.tp), narrow)
+    restored = ckpt(narrow).restore(None, {"params": like_p, "opt_state": adamw_init(like_p)})
+    p2, _, loss_el = run(restored["params"], restored["opt_state"], 4, 4, narrow)
+    out.update(elastic=gathered(p2, narrow), loss_el=loss_el,
+               step=restored["__manifest__"]["step"])
+    return out if rank == 0 else {"rank": rank}
+
+
+def combine_rank(rank: int, world: int) -> dict:
+    """One rank of tests/test_torch_sharding.py's two-shard merge: its half
+    of the slots through the plain decode attention, merged over the ranks;
+    the largest difference from the unsplit result."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import decode_attention_plain
+    from repro_torch.models.sharding import combine_attention
+    rng = np.random.default_rng(3)
+    B, H, Hkv, S, d = 3, 8, 2, 64, 32
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, H, d), (B, Hkv, S, d), (B, Hkv, S, d)))
+    valid = torch.from_numpy(rng.random((B, S)) < 0.6)
+    valid[1, S // 2:] = False            # every live slot on rank 0
+    valid[2] = False                     # no live slot anywhere
+    want = decode_attention_plain(q, k, v, valid, softcap=30.0)
+    s0, s1 = rank * S // world, (rank + 1) * S // world
+    part, lse = decode_attention_plain(q, k[:, :, s0:s1].contiguous(),
+                                       v[:, :, s0:s1].contiguous(), valid[:, s0:s1],
+                                       softcap=30.0, return_lse=True)
+    got = combine_attention(part, lse, dist.group.WORLD)
+    return {"rank": rank, "err": float((got - want).abs().max())}

@@ -322,3 +322,41 @@ def test_timing_yardstick_counts_valid_slots_and_exceeds_l2(shared):
     copies = cold_copies(object, moved, 50 << 20)
     assert len(copies) * moved >= L2_SPAN * (50 << 20)
     assert len(set(map(id, copies))) == len(copies)
+
+
+def _ref_lse(q, k, valid, cap):
+    """The reference oracle's scores (decode_attention/ref.py) for one row's
+    (S,) mask, reduced by logsumexp: (B, H)."""
+    import jax
+    B, H, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    s = jnp.einsum("bhgd,bhsd->bhgs", q.reshape(B, Hkv, H // Hkv, d).astype(jnp.float32),
+                   k.astype(jnp.float32)) / np.sqrt(d)
+    if cap is not None:
+        s = cap * jnp.tanh(s / cap)
+    s = jnp.where(valid[None, None, None, :], s, NEG_INF)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(B, H)
+
+
+@pytest.mark.parametrize("cap", [None, 50.0])
+def test_plain_lse_matches_the_reference_math(cap):
+    """``return_lse``: the output is unchanged, and lse is the logsumexp of
+    the oracle's masked scores, row by row; a row with no valid slot gives
+    about NEG_INF (-2e38), far below any live row."""
+    B, H, Hkv, S, d = 3, 4, 2, 96, 32
+    q, k, v = _qkv(B, H, Hkv, S, d, "float32", seed=21)
+    valid = np.random.default_rng(2).random((B, S)) < 0.5
+    valid[2] = False                                       # all invalid
+    out, lse = decode_attention_plain(to_torch(q), to_torch(k), to_torch(v),
+                                      torch.from_numpy(valid), softcap=cap,
+                                      return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out, decode_attention_plain(to_torch(q), to_torch(k), to_torch(v),
+                                                   torch.from_numpy(valid), softcap=cap))
+    for b in range(B):
+        want = _ref_lse(q[b:b + 1], k[b:b + 1], jnp.asarray(valid[b]), cap)
+        np.testing.assert_allclose(lse[b:b + 1].numpy(), want, rtol=2e-6, atol=2e-5)
+        ref = decode_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                   jnp.asarray(valid[b]), softcap=cap)
+        np.testing.assert_allclose(to_f32(out[b:b + 1]), to_f32(ref), atol=2e-5, rtol=2e-5)
+    assert float(lse[2].max()) < -1e38 and float(lse[:2].min()) > -1e3

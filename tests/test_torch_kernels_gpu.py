@@ -268,6 +268,36 @@ def test_decode_attention_live_extent_and_any_split_count(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_lse_matches_plain(dtype):
+    """``return_lse``: each head's logsumexp from the one-split kernel and
+    from the merge of several splits, against the plain version (about
+    NEG_INF for the all-invalid row); the output unchanged by asking."""
+    dev = _card()
+    rng = np.random.default_rng(13)
+    for (B, H, Hkv, S, d, cap) in [(4, 16, 8, 4096, 128, None), (2, 4, 2, 1000, 64, 30.0),
+                                   (2, 10, 1, 2048, 256, None)]:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(dtype).to(dev)
+                   for shape in ((B, H, d), (B, Hkv, S, d), (B, Hkv, S, d)))
+        for name, valid in _extent_masks(B, S, rng):
+            valid = torch.from_numpy(valid).to(dev)
+            ref, ref_lse = decode_attention_plain(q, k, v, valid, softcap=cap,
+                                                  return_lse=True)
+            runs = [decode_attention(q, k, v, valid, softcap=cap, return_lse=True)]
+            runs += [launch_splits(q, k, v, valid, n, softcap=cap, return_lse=True)
+                     for n in (1, 5, 64)]
+            torch.cuda.synchronize()
+            for out, lse in runs:
+                assert lse.dtype == torch.float32 and lse.shape == (B, H), name
+                np.testing.assert_allclose(out.float().cpu().numpy(),
+                                           ref.float().cpu().numpy(), atol=TOL[dtype],
+                                           rtol=TOL[dtype], err_msg=name)
+                np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(),
+                                           atol=1e-4, rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.gpu
 def test_diag_recurrence_routes_match_plain_and_are_counted():
     """The planner's route at the model shapes: sequential bitwise equal to
     the plain version, chunked within 1e-4 (a near 0 included: underflowing

@@ -372,4 +372,5 @@ def test_port_imports_no_jax():
     assert {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
             "repro_torch.optim.compression", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
-            "repro_torch.core.aot"} <= names
+            "repro_torch.core.aot", "repro_torch.models.sharding",
+            "repro_torch.launch.mesh", "repro_torch.launch.cluster"} <= names

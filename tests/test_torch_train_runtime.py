@@ -41,7 +41,7 @@ from repro_torch.optim import (
     init_error_feedback,
 )
 from repro_torch.runtime import InjectedFailure, SupervisorConfig, TrainSupervisor
-from tests._torch_parity import to_f32, tree_to_torch
+from tests._torch_parity import launcher_rank, run_ranks, to_f32, tree_to_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -306,6 +306,10 @@ def test_train_launcher_runs_on_the_cpu():
             lines = [json.loads(line) for line in f]
         assert [m["step"] for m in lines] == [0, 1, 2]
         assert latest_step(os.path.join(tmp, "ck")) == 3
-    from repro_torch.launch.train import main
-    with pytest.raises(ValueError, match="model-axis"):
-        main(["--model-axis", "2", "--device", "cpu"])
+        # the same run on 2 gloo ranks as a 1 x 2 ("data", "model") mesh
+        losses = run_ranks(launcher_rank, 2, [
+            "--arch", "fnbench_tiny", "--steps", "3", "--model-axis", "2",
+            "--device", "cpu", "--ckpt-dir", os.path.join(tmp, "ck2"),
+            "--log", os.path.join(tmp, "log2.jsonl")])
+    assert losses[0] == losses[1]
+    assert np.abs(np.array(losses[0]) - [m["loss"] for m in lines]).max() <= 1e-5
