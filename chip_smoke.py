@@ -171,6 +171,11 @@ DECODE_GRANITE = (SERVE_SLOTS, 24, 8, SERVE_SEQ, 64)        # granite-moe-3b dec
 DECODE_INTERNVL = (FRONTEND_BATCH, 14, 2, 256 + FRONTEND_PROMPT + FRONTEND_NEW, 64)  # g = 7
 DECODE_CROSS = (FRONTEND_BATCH, 12, 12, 1500, 64)           # whisper cross, all keys valid
 DECODE_H2O = (1, 32, 8, 4096, 120)                          # h2o-danube3-4b ring: d = 120
+DECODE_LSE = [  # (B, H, Hkv, S, d, live slots): one rank's block in phase 18's split caches
+    (1, 8, 4, 192, 128, 184),   # qwen3-1.7b on 2 x 2: a data rank's 192 of 384 slots, 8/4 heads
+    (2, 4, 2, 128, 64, 100),    # fnbench-tiny on 1 x 4: a model rank's 128 of 512, all 4 q heads
+]
+LSE_TOL = (1e-4, 1e-5)      # absolute, relative
 RECURRENCE_SWEEP = [(2, 100, 64), (1, 256, 32), (3, 17, 130), (1, 64, 2048)]  # test_kernels.py:68-70
 RECURRENCE_MAIN = {  # shape -> the route diag_recurrence's planner must take there
     (1, 2048, 2560): "chunked",          # recurrentgemma-2b RG-LRU prefill at S=2048
@@ -543,6 +548,46 @@ def check_decode(device, errs: dict) -> None:
     for name, err in worst.items():
         errs[f"decode_attention:{name}"] = err
     log(f"[3] decode_attention: {n} cases within tolerance")
+
+
+def check_decode_lse(device) -> None:
+    """decode_attention's lse output at phase 18's position-split blocks
+    (DECODE_LSE): a block holding a live prefix and a block holding no live
+    slot, each against the plain version (out within TOL, lse within
+    LSE_TOL), and the empty block's weight in the merge, exp(lse_empty -
+    lse_live), exactly 0."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    gen = torch.Generator(device=device).manual_seed(18)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for (B, H, Hkv, S, d, live) in DECODE_LSE:
+            q = torch.randn((B, H, d), generator=gen, device=device).to(dtype)
+            lse_of = {}
+            for name in ("live", "empty"):
+                k = torch.randn((B, Hkv, S, d), generator=gen, device=device).to(dtype)
+                v = torch.randn((B, Hkv, S, d), generator=gen, device=device).to(dtype)
+                valid = (torch.arange(S, device=device) < (live if name == "live" else 0)
+                         ).expand(B, S).contiguous()
+                out, lse = decode_attention(q, k, v, valid, return_lse=True)
+                ref, ref_lse = decode_attention_plain(q, k, v, valid, return_lse=True)
+                sync(device)
+                err = float((out.float() - ref.float()).abs().max())
+                lse_err = float(((lse - ref_lse).abs()
+                                 / (LSE_TOL[0] + LSE_TOL[1] * ref_lse.abs())).max())
+                label = (f"{str(dtype).split('.')[1]} B{B} H{H}/{Hkv} S{S} d{d} block={name}")
+                expect(bool(torch.isfinite(out.float()).all()) and err <= tol + tol * float(
+                    ref.float().abs().max()), f"decode_attention lse {label}: out |err| {err}")
+                expect(lse_err <= 1.0, f"decode_attention lse {label}: lse off by {lse_err} "
+                       f"of its tolerance {LSE_TOL}")
+                lse_of[name] = lse
+                log(f"[3] decode_attention lse {label}: out max |err| {err:.3e}, lse "
+                    f"{float(lse.min()):.4g}..{float(lse.max()):.4g}, {lse_err:.3f} of "
+                    f"tolerance")
+            w = torch.exp(lse_of["empty"] - lse_of["live"])
+            expect(bool((w == 0).all()), f"decode_attention lse B{B} H{H}/{Hkv} S{S} d{d}: "
+                   f"an empty block weighs up to {float(w.max())} beside a live one")
 
 
 def check_diag_recurrence(device, errs: dict) -> None:
@@ -1999,18 +2044,24 @@ SHARD_CASES = {
     "18c": ("qwen1_5_0_5b", None, (2, 2), "train"),
     "18d": ("falcon_mamba_7b", 2, (1, 4), "serve"),
     "18e": ("moonshot_v1_16b_a3b", 2, (1, 4), "forward"),
+    "18f": ("fnbench_tiny", None, (1, 4), "serve"),
 }
-# serve cases: batch, prompt, teacher-forced decode steps, cache positions
-SHARD_SERVE = {"18a": (2, 256, 8, 512), "18b": (1, 256, 8, 384), "18d": (1, 512, 8, 520)}
+# serve cases: batch, prompt, tokens after it (the first K-1 fed teacher-forced to
+# the decode steps), cache positions
+SHARD_SERVE = {"18a": (2, 256, 8, 512), "18b": (1, 184, 16, 384), "18d": (1, 512, 8, 520),
+               "18f": (2, 100, 40, 512)}
+# cases whose cache positions split over ranks, by the axis they split over: 18b's
+# batch of 1 does not cover data (192 slots a data rank), 18f's 2 kv heads do not
+# divide model 4 (128 slots a rank; all 4 q heads gathered). Each prompt ends short
+# of the second block, so a rank attends a block with no live slot at first (its lse
+# must weigh 0 in the merge) and takes its first live slot mid-decode
+SHARD_SEQ_AXES = {"18b": ["data"], "18f": ["model"]}
 SHARD_MOONSHOT_SEQ = 256
-SHARD_REDUCED = False      # a CPU rehearsal sets it: every case at its reduced config
 
 
 def _shard_cfg(case: str):
-    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs import get_config
     arch, layers, _, _ = SHARD_CASES[case]
-    if SHARD_REDUCED:
-        return get_reduced(arch)
     cfg = get_config(arch)
     return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
 
@@ -2032,9 +2083,11 @@ def _shard_params(cfg, device, par=None):
 def _shard_serve(params, cfg, tokens, P, C, device, par=None):
     """Logits (K+1, B, V) of the prefill's last position and of decode steps
     fed tokens[:, P:-1] (teacher-forced), on one rank or sharded (``par``:
-    each rank's rows and vocab block gathered), and the times: the prefill's
-    seconds, the median step's ms (the logits' gather included) and the
-    all_reduces of the last step (count, bytes)."""
+    each rank's rows and vocab block gathered), and the stats: the prefill's
+    seconds, the median step's ms (the logits' gather included), the
+    all_reduces of the last step (count, bytes) and, where the cache's
+    positions split, the decode steps that attended this rank's block while
+    it held no live slot."""
     import statistics
     import torch
     from repro_torch.models import sharding as sh
@@ -2058,6 +2111,9 @@ def _shard_serve(params, cfg, tokens, P, C, device, par=None):
     rows = [whole(logits[:, -1])[:, : cfg.vocab_size]]
     sync(device)
     stats = {"prefill_s": time.perf_counter() - t0}
+    split = pb is not None and not cfg.is_attention_free and pb.seq_axes is not None
+    if split:
+        stats["empty_steps"] = 0
     steps = []
     for i in range(P, toks.shape[1] - 1):
         t0, calls, nbytes = time.perf_counter(), sh.all_reduce.calls, sh.all_reduce.bytes
@@ -2065,6 +2121,8 @@ def _shard_serve(params, cfg, tokens, P, C, device, par=None):
         rows.append(whole(lg)[:, : cfg.vocab_size])
         sync(device)
         steps.append(time.perf_counter() - t0)
+        if split:      # the step wrote its slot, then attended the block as it is now
+            stats["empty_steps"] += int(not bool((st["unit"][0].k_pos >= 0).any()))
         stats["step_all_reduces"] = sh.all_reduce.calls - calls
         stats["step_all_reduce_bytes"] = sh.all_reduce.bytes - nbytes
     stats["step_ms"] = statistics.median(steps) * 1e3
@@ -2227,26 +2285,17 @@ def _rank_case(case: str, rank: int, device, refs: str) -> dict:
     return out
 
 
-def _shard_shapes() -> dict:
-    """The module constants a rank reads (a CPU rehearsal shrinks them in the
-    parent; the spawned ranks import this file afresh)."""
-    return {k: globals()[k] for k in ("SHARD_REDUCED", "SHARD_SERVE",
-                                      "SHARD_MOONSHOT_SEQ", "TRAIN_SHAPE")}
-
-
-def shard_rank(rank: int, world: int, init_file: str, refs: str, device_type: str,
-               shapes: dict) -> None:
+def shard_rank(rank: int, world: int, refs: str, device_type: str) -> dict:
     """One of the phase's ranks: every case in turn, each on its own mesh;
-    results into ``refs/rank<r>.json``. Any exception ends the rank with a
-    non-zero code, which fails the phase."""
-    globals().update(shapes)
+    returns the results. Any exception ends the rank with a non-zero code,
+    which fails the phase."""
     import torch
-    from repro_torch.launch.mesh import init_ranks
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import rank_device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = init_ranks(rank, world, f"file://{init_file}", device_type,
-                        timeout_s=SHARD_TIMEOUT)
-    results = {}
+    device = rank_device(device_type, rank)
+    results = {"backend": dist.get_backend()}
     for case in SHARD_CASES:
         results[case] = _rank_case(case, rank, device, refs)
         r = results[case]
@@ -2254,11 +2303,7 @@ def shard_rank(rank: int, world: int, init_file: str, refs: str, device_type: st
             f"launches {r['counts']}" + (f", recurrence {r['recurrence_plan']} "
                                           f"{r['recurrence_routes']}"
                                           if "recurrence_plan" in r else ""))
-    import torch.distributed as dist
-    results["backend"] = dist.get_backend()
-    with open(os.path.join(refs, f"rank{rank}.json"), "w") as f:
-        json.dump(results, f)
-    dist.destroy_process_group()
+    return results
 
 
 def phase_sharded(device, tmp: str, tag: str = "18") -> dict:
@@ -2269,44 +2314,24 @@ def phase_sharded(device, tmp: str, tag: str = "18") -> dict:
     on this card: serving logits within SERVE_LOGIT_TOL of max |logit|
     (qwen3-1.7b at 1 x 4 with its kv heads split 8/4; at batch 1 on 2 x 2 with
     the cache's positions split over data, the lse merge on the card;
-    falcon-mamba-7b at 2 of 64 layers, its recurrence over d_inner*N/4
-    channels a rank), one qwen1.5-0.5b train step at 2 x 2 (loss within
-    SHARD_TRAIN_TOL relative, parameters within SHARD_PARAM_TOL), and
+    fnbench-tiny at 1 x 4 with them split over model and its q heads gathered;
+    in both a rank's block holds no live slot at first; falcon-mamba-7b at 2
+    of 64 layers, its recurrence over d_inner*N/4 channels a rank), one
+    qwen1.5-0.5b train step at 2 x 2 (loss within SHARD_TRAIN_TOL relative,
+    parameters within SHARD_PARAM_TOL), and
     moonshot-v1-16b-a3b at 2 of 48 layers, 16 experts a rank, where its
     routing agrees. The times are collective round trips through the host
     (gloo), not a tensor-parallel speed."""
-    import multiprocessing
+    import torch
+    from repro_torch.launch.mesh import spawn_local_ranks
     refs = os.path.join(tmp, "sharded")
     os.makedirs(refs, exist_ok=True)
     t0 = time.perf_counter()
     shard_references(device, refs, tag)
     log(f"[{tag}] one-rank references {time.perf_counter() - t0:.1f} s")
-    ctx = multiprocessing.get_context("spawn")
     t1 = time.perf_counter()
-    procs = [ctx.Process(target=shard_rank, args=(r, SHARD_RANKS, os.path.join(refs, "rdv"),
-                                                   refs, device.type, _shard_shapes()))
-             for r in range(SHARD_RANKS)]
-    for p in procs:
-        p.start()
-    try:
-        while any(p.is_alive() for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
-            expect(not failed, f"phase {tag}: rank(s) {failed} failed")
-            expect(time.perf_counter() - t1 < SHARD_TIMEOUT,
-                   f"phase {tag}: the ranks ran past {SHARD_TIMEOUT} s")
-            time.sleep(0.5)
-        codes = [p.exitcode for p in procs]
-        expect(codes == [0] * SHARD_RANKS, f"phase {tag}: rank exit codes {codes}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join(30)
-    ranks = []
-    for r in range(SHARD_RANKS):
-        with open(os.path.join(refs, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    import torch
+    ranks = spawn_local_ranks(shard_rank, SHARD_RANKS, device.type,
+                              args=(refs, device.type), timeout=SHARD_TIMEOUT)
     cards = torch.cuda.device_count() if device.type == "cuda" else 0
     log(f"[{tag}] {SHARD_RANKS} ranks, backend {ranks[0]['backend']}, on {cards} card(s): "
         f"{time.perf_counter() - t1:.1f} s from start to exit")
@@ -2340,11 +2365,20 @@ def check_sharded(ranks: list, tag: str = "18") -> dict:
             expect(r0["rel_err"] <= SERVE_LOGIT_TOL,
                    f"[{case}] sharded logits differ from one rank's by {r0['rel_err']} of "
                    f"max |logit| > {SERVE_LOGIT_TOL}")
+            if case in SHARD_SEQ_AXES:
+                summary["empty_steps"] = [r["times"]["empty_steps"] for r in rs]
+                expect(list(r0["seq_axes"] or ()) == SHARD_SEQ_AXES[case],
+                       f"[{case}] cache positions split over {r0['seq_axes']}, not "
+                       f"{SHARD_SEQ_AXES[case]}")
+                steps = SHARD_SERVE[case][2] - 1        # the last token is not fed
+                expect(any(0 < n < steps for n in summary["empty_steps"]),
+                       f"[{case}] no rank attended an empty block and then a live one: "
+                       f"{summary['empty_steps']} of {steps} steps")
             if "recurrence_plan" in r0:
                 summary["recurrence"] = [r["recurrence_plan"] for r in rs]
                 summary["recurrence_routes"] = [r["recurrence_routes"] for r in rs]
         elif work == "train":
-            n_layers = get_config(arch).n_layers if not SHARD_REDUCED else None
+            n_layers = get_config(arch).n_layers
             rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
             summary.update(loss=r0["loss"], ref_loss=r0["ref_loss"], loss_rel_err=rel,
                            param_err=max(r["param_err"] for r in rs),
@@ -2353,10 +2387,9 @@ def check_sharded(ranks: list, tag: str = "18") -> dict:
                    f"{r0['ref_loss']}: {rel} > {SHARD_TRAIN_TOL}")
             expect(summary["param_err"] <= SHARD_PARAM_TOL,
                    f"[{case}] parameters after the step differ by {summary['param_err']}")
-            if n_layers:
-                expect(r0["flash_per_step"] == dict.fromkeys(r0["flash_per_step"], n_layers),
-                       f"[{case}] flash launches a rank {r0['flash_per_step']}, not "
-                       f"{n_layers} each")
+            expect(r0["flash_per_step"] == dict.fromkeys(r0["flash_per_step"], n_layers),
+                   f"[{case}] flash launches a rank {r0['flash_per_step']}, not "
+                   f"{n_layers} each")
         else:
             summary.update(alike=r0["alike"], positions=r0["positions"],
                            rel_err=r0["rel_err"])
@@ -2661,6 +2694,7 @@ def main() -> int:
     check_page_gather(qimg.store, device, errs)
     check_flash(device, errs)
     check_decode(device, errs)
+    check_decode_lse(device)
     check_diag_recurrence(device, errs)
     log(f"[3] phase {time.perf_counter() - t0:.1f} s")
     peaks = [free_device("3")]

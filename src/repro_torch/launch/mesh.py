@@ -10,7 +10,8 @@ The backend is chosen explicitly and printed (:func:`choose_backend`):
 ``nccl`` when each rank has a card of its own, ``gloo`` when ranks share a
 card or run on the CPU. The port's collectives are ``all_reduce`` and
 ``broadcast`` only, the two that gloo takes on CUDA tensors, so one code
-path serves all three.
+path serves all three. :func:`spawn_local_ranks` starts a group of ranks on
+one host and fails as soon as one of them does.
 
 Topology of the reference's production meshes:
   * single-pod: (16, 16)    = ('data', 'model')
@@ -20,7 +21,8 @@ Topology of the reference's production meshes:
 from __future__ import annotations
 
 import datetime
-from typing import Optional
+import os
+from typing import Any, Callable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -67,6 +69,70 @@ def init_ranks(rank: int, world: int, init_method: str, device_type: str, *,
     return device
 
 
+def _local_rank_entry(fn, rank: int, world: int, tmp: str, device_type: str, args: tuple,
+                      timeout_s: float) -> None:
+    import traceback
+    try:
+        init_ranks(rank, world, f"file://{os.path.join(tmp, 'rdv')}", device_type,
+                   timeout_s=timeout_s)
+        torch.save(fn(rank, world, *args), os.path.join(tmp, f"out{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_local_ranks(fn: Callable[..., Any], world: int, device_type: str = "cuda", *,
+                      args: tuple = (), timeout: Optional[float] = None) -> List[Any]:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes on this
+    host, joined by :func:`init_ranks` through a file rendezvous in a
+    temporary directory (groups started side by side never share a port).
+    Returns each rank's result (picklable) by rank. A rank that fails fails
+    the call at once, and so does any rank still running after ``timeout``
+    seconds (None: no limit but the process group's 600 s a collective): the
+    other ranks are killed and the error holds the ranks' tracebacks."""
+    import multiprocessing
+    import tempfile
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+        procs = [ctx.Process(target=_local_rank_entry, daemon=True,
+                             args=(fn, r, world, tmp, device_type, tuple(args),
+                                   timeout or 600.0))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = None if timeout is None else time.monotonic() + timeout
+        try:
+            while any(p.is_alive() for p in procs):
+                if any(p.exitcode not in (None, 0) for p in procs) or (
+                        deadline is not None and time.monotonic() > deadline):
+                    break
+                time.sleep(0.2)
+        finally:
+            running = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            errors = ""
+            for r in range(world):
+                path = os.path.join(tmp, f"err{r}.txt")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        errors += f"--- rank {r}\n{f.read()}"
+            raise RuntimeError(f"local ranks failed: exit codes {codes}, killed while "
+                               f"running {running}\n{errors[-6000:]}")
+        return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
 def _world() -> int:
     if not dist.is_initialized():
         raise RuntimeError("no process group: call launch.mesh.init_ranks or "
@@ -88,7 +154,7 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_local_mesh(model_axis: int = 1, device_type: str = "cpu"):
+def make_local_mesh(model_axis: int = 1, device_type: str = "cuda"):
     """Every rank, as ('data', 'model') = (world // model_axis, model_axis),
     row-major (rank r at (r // model_axis, r % model_axis)), as the
     reference's ``Mesh(devices.reshape(...))`` lays them out."""

@@ -32,7 +32,6 @@ import argparse
 import json
 import os
 import sys
-import tempfile
 import time
 
 
@@ -74,7 +73,8 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     rank, world = initialize_distributed(device.type)
     if world == 1 and args.model_axis > 1:
-        return _spawn_ranks(sys.argv[1:] if argv is None else argv, args.model_axis)
+        return _spawn_ranks(sys.argv[1:] if argv is None else argv, args.model_axis,
+                            device.type)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -151,26 +151,15 @@ def main(argv=None) -> dict:
     return {"params": params, "opt_state": opt_state, "history": hist}
 
 
-def _rank_main(rank: int, argv, world: int, init_file: str) -> None:
-    os.environ.update(COORDINATOR_ADDRESS=f"file://{init_file}", NUM_PROCESSES=str(world),
-                      PROCESS_ID=str(rank), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(world))
-    try:
-        main(argv)
-    finally:
-        import torch.distributed as dist
-        if dist.is_initialized():
-            dist.destroy_process_group()
+def _rank_main(rank: int, world: int, argv) -> None:
+    main(argv)
 
 
-def _spawn_ranks(argv, world: int) -> dict:
-    """``main(argv)`` on ``world`` local ranks (a file rendezvous); raises if
-    any rank fails."""
-    import torch.multiprocessing as mp
+def _spawn_ranks(argv, world: int, device_type: str) -> dict:
+    """``main(argv)`` on ``world`` local ranks; raises if any rank fails."""
+    from repro_torch.launch.mesh import spawn_local_ranks
     print(f"[train] starting {world} local ranks", flush=True)
-    with tempfile.TemporaryDirectory(prefix="train-ranks-") as tmp:
-        mp.start_processes(_rank_main, args=(argv, world, os.path.join(tmp, "rdv")),
-                           nprocs=world, start_method="spawn")
+    spawn_local_ranks(_rank_main, world, device_type, args=(argv,))
     return {"ranks": world}
 
 

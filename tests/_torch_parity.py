@@ -56,64 +56,18 @@ def frontend(cfg, batch: int, rng) -> dict:
 RANK_TIMEOUT = 240.0     # seconds for init_process_group, each collective and the join
 
 
-def _rank_entry(fn, rank: int, world: int, tmp: str, args: tuple, timeout: float):
-    import datetime
-    import os
-    import traceback
-
-    import torch.distributed as dist
+def _one_thread(rank: int, world: int, fn, *args):
     torch.set_num_threads(1)
-    try:
-        dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'rdv')}",
-                                rank=rank, world_size=world,
-                                timeout=datetime.timedelta(seconds=timeout))
-        out = fn(rank, world, *args)
-        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
-    except BaseException:
-        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
-        raise SystemExit(1)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    return fn(rank, world, *args)
 
 
 def run_ranks(fn, world: int, *args, timeout: float = RANK_TIMEOUT) -> list:
-    """``fn(rank, world, *args)`` in ``world`` spawned CPU processes joined
-    in a gloo process group (a file rendezvous, so parallel test workers
-    never share a port); each returns a picklable result. Returns the
-    results by rank. A rank that fails, or any rank still running after
-    ``timeout`` seconds, fails the call with the ranks' tracebacks."""
-    import multiprocessing
-    import os
-    import tempfile
-    import time
-
-    ctx = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
-        procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, tmp, args, timeout),
-                             daemon=True) for r in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-        errors = ""
-        for r in range(world):
-            path = os.path.join(tmp, f"err{r}.txt")
-            if os.path.exists(path):
-                with open(path) as f:
-                    errors += f"--- rank {r}\n{f.read()}"
-        if hung or any(p.exitcode != 0 for p in procs):
-            raise AssertionError(f"ranks hung: {hung}; exit codes "
-                                 f"{[p.exitcode for p in procs]}\n{errors[-6000:]}")
-        return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
-                for r in range(world)]
+    """``fn(rank, world, *args)`` on ``world`` gloo CPU ranks of one thread
+    each (``launch.mesh.spawn_local_ranks``); their results by rank. A rank
+    that fails, or hangs past ``timeout`` seconds, fails the call with the
+    ranks' tracebacks."""
+    from repro_torch.launch.mesh import spawn_local_ranks
+    return spawn_local_ranks(_one_thread, world, "cpu", args=(fn, *args), timeout=timeout)
 
 
 def sharded_exec_rank(rank: int, world: int, job: dict) -> dict:
