@@ -181,8 +181,14 @@ RECURRENCE_MAIN = {  # shape -> the route diag_recurrence's planner must take th
     (1, 2048, 2560): "chunked",          # recurrentgemma-2b RG-LRU prefill at S=2048
     (1, 512, 2560): "chunked",           # ... and at S=512
     (1, 256, 131072): "sequential",      # falcon-mamba-7b, one SSM chunk (256 x 8192 x 16)
+    (1, 512, 640): "chunked",            # recurrentgemma-2b at model 4 (18g): a rank's prefill
+    (2, 1024, 1280): "chunked",          # ... its train step at 2 x 2 (18g-train), a rank's
 }
-RECURRENCE_TIMED = {"falcon": (1, 256, 131072), "recurrentgemma": (1, 2048, 2560)}
+RECURRENCE_TIMED = {"falcon": (1, 256, 131072), "recurrentgemma": (1, 2048, 2560),
+                    "recurrentgemma-tp4": (1, 512, 640),
+                    "recurrentgemma-tp2": (2, 1024, 1280)}
+#: RECURRENCE_TIMED's sharded rows -> the phase 18 case that runs them
+RECURRENCE_CASES = {"recurrentgemma-tp4": "18g", "recurrentgemma-tp2": "18g-train"}
 DECODE_TIMED = {  # path -> (its decode shape, the dtype the path runs it in)
     "qwen3": (DECODE_MAIN, "float32"), "recurrentgemma": (DECODE_GRIFFIN, "float32"),
     "granite": (DECODE_GRANITE, "float32"), "internvl2": (DECODE_INTERNVL, "float32"),
@@ -2037,7 +2043,8 @@ SHARD_RANKS = 4
 SHARD_TIMEOUT = 600        # s: the ranks' start, each collective, and the whole phase
 SHARD_TRAIN_TOL = 1e-5     # relative, the loss of one step against one rank's
 SHARD_PARAM_TOL = 1e-3     # the parameters after it (tests/test_sharded_exec.py's bar)
-# case -> (arch, layers (None: all), (data, model), work); the shapes below
+# case -> (arch, layers (None: all), mesh, work); the mesh is (data, model) or
+# (pod, data, model); the shapes below
 SHARD_CASES = {
     "18a": ("qwen3_1_7b", None, (1, 4), "serve"),
     "18b": ("qwen3_1_7b", None, (2, 2), "serve"),
@@ -2045,11 +2052,23 @@ SHARD_CASES = {
     "18d": ("falcon_mamba_7b", 2, (1, 4), "serve"),
     "18e": ("moonshot_v1_16b_a3b", 2, (1, 4), "forward"),
     "18f": ("fnbench_tiny", None, (1, 4), "serve"),
+    # recurrentgemma-2b: attention replicated (10 heads over 4), the cache's
+    # positions over model, 640 LRU channels a rank; its train step at 2 x 2
+    # (1,280 channels, 5 q heads a rank beside the one kv head) at one pattern
+    # unit (2 recurrent + 1 local attention layers): four ranks each build the
+    # whole model before they cut it, 10.7 GB fp32 at full depth, and the
+    # moments and gradients of the shards come on top
+    "18g": ("recurrentgemma_2b", None, (1, 4), "serve"),
+    "18g-train": ("recurrentgemma_2b", 3, (2, 2), "train"),
+    "18h": ("whisper_small", None, (1, 4), "serve"),      # 3 heads a rank, cross state whole
+    "18i": ("internvl2_1b", None, (2, 2), "serve"),       # 7 q / 1 kv heads a rank: g = 7
+    "18j": ("qwen3_1_7b", None, (2, 1, 2), "serve"),      # pod x data x model
 }
 # serve cases: batch, prompt, tokens after it (the first K-1 fed teacher-forced to
-# the decode steps), cache positions
+# the decode steps), cache positions (after internvl2's 256 patches)
 SHARD_SERVE = {"18a": (2, 256, 8, 512), "18b": (1, 184, 16, 384), "18d": (1, 512, 8, 520),
-               "18f": (2, 100, 40, 512)}
+               "18f": (2, 100, 40, 512), "18g": (1, 512, 8, 520), "18h": (2, 64, 16, 80),
+               "18i": (2, 64, 16, 336), "18j": (2, 256, 8, 512)}
 # cases whose cache positions split over ranks, by the axis they split over: 18b's
 # batch of 1 does not cover data (192 slots a data rank), 18f's 2 kv heads do not
 # divide model 4 (128 slots a rank; all 4 q heads gathered). Each prompt ends short
@@ -2057,6 +2076,9 @@ SHARD_SERVE = {"18a": (2, 256, 8, 512), "18b": (1, 184, 16, 384), "18d": (1, 512
 # must weigh 0 in the merge) and takes its first live slot mid-decode
 SHARD_SEQ_AXES = {"18b": ["data"], "18f": ["model"]}
 SHARD_MOONSHOT_SEQ = 256
+# train cases whose gradients are held against one rank's, leaf by leaf (the leaves
+# under this path prefix: the RG-LRU's, through the width gathered for its gates)
+SHARD_GRADS = {"18g-train": "['unit'][0]['rec']"}
 
 
 def _shard_cfg(case: str):
@@ -2064,6 +2086,32 @@ def _shard_cfg(case: str):
     arch, layers, _, _ = SHARD_CASES[case]
     cfg = get_config(arch)
     return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def _shard_front(cfg, B: int, case: str):
+    """The stub frontend's embeddings of a serve case (whisper's frames,
+    internvl2's patches) from the case's seed, fp32, or None."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(100 + int(case[2], 36))
+    n = {"audio_frames": cfg.n_enc_positions,
+         "vision_patches": cfg.n_frontend_tokens}.get(cfg.frontend)
+    if n is None:
+        return None
+    return torch.from_numpy((rng.standard_normal((B, n, cfg.d_model)) * 0.02
+                             ).astype(np.float32))
+
+
+def _attn_index(cfg) -> int:
+    """The pattern position of the first attention layer."""
+    from repro_torch.models.config import GLOBAL_ATTN, LOCAL_ATTN
+    return next(i for i, t in enumerate(cfg.attn_pattern) if t in (GLOBAL_ATTN, LOCAL_ATTN))
+
+
+def _attn_layers(cfg) -> int:
+    from repro_torch.models.config import GLOBAL_ATTN, LOCAL_ATTN
+    return sum(cfg.attn_pattern[i % len(cfg.attn_pattern)] in (GLOBAL_ATTN, LOCAL_ATTN)
+               for i in range(cfg.n_layers))
 
 
 def _shard_params(cfg, device, par=None):
@@ -2080,14 +2128,15 @@ def _shard_params(cfg, device, par=None):
     return local, specs
 
 
-def _shard_serve(params, cfg, tokens, P, C, device, par=None):
+def _shard_serve(params, cfg, tokens, P, C, device, par=None, front=None):
     """Logits (K+1, B, V) of the prefill's last position and of decode steps
     fed tokens[:, P:-1] (teacher-forced), on one rank or sharded (``par``:
-    each rank's rows and vocab block gathered), and the stats: the prefill's
-    seconds, the median step's ms (the logits' gather included), the
-    all_reduces of the last step (count, bytes) and, where the cache's
-    positions split, the decode steps that attended this rank's block while
-    it held no live slot."""
+    each rank's rows and vocab block gathered), after the stub frontend's
+    embeddings ``front`` if any, and the stats: the prefill's seconds, the
+    median step's ms (the logits' gather included), the all_reduces of the
+    last step (count, bytes) and, where the cache's positions split, the
+    decode steps that attended this rank's block while it held no live
+    slot."""
     import statistics
     import torch
     from repro_torch.models import sharding as sh
@@ -2096,24 +2145,27 @@ def _shard_serve(params, cfg, tokens, P, C, device, par=None):
     pb = par.for_batch(B) if par is not None else None
     covers = pb is not None and pb.batch_covers and pb.dp > 1
     toks = tokens.to(device)
+    fe = front.to(device) if front is not None else None
     if covers:
         n = B // pb.dp
         toks = toks[pb.dp_rank * n:(pb.dp_rank + 1) * n]
+        fe = fe[pb.dp_rank * n:(pb.dp_rank + 1) * n] if fe is not None else None
 
     def whole(lg):
         lg = sh.gather_vocab(lg, pb)
-        return sh.gather_dim(lg.contiguous(), 0, "data", pb) if covers else lg
+        return sh.gather_dim(lg.contiguous(), 0, pb.dp_axes, pb) if covers else lg
 
     sync(device)
     t0 = time.perf_counter()
-    logits, st = forward(params, toks[:, :P], cfg, make_state=True, state_len=C,
-                         logits_slice=1, par=pb)
+    logits, st = forward(params, toks[:, :P], cfg, frontend_embeds=fe, make_state=True,
+                         state_len=C, logits_slice=1, par=pb)
     rows = [whole(logits[:, -1])[:, : cfg.vocab_size]]
     sync(device)
     stats = {"prefill_s": time.perf_counter() - t0}
     split = pb is not None and not cfg.is_attention_free and pb.seq_axes is not None
     if split:
         stats["empty_steps"] = 0
+        attn = _attn_index(cfg)
     steps = []
     for i in range(P, toks.shape[1] - 1):
         t0, calls, nbytes = time.perf_counter(), sh.all_reduce.calls, sh.all_reduce.bytes
@@ -2122,7 +2174,7 @@ def _shard_serve(params, cfg, tokens, P, C, device, par=None):
         sync(device)
         steps.append(time.perf_counter() - t0)
         if split:      # the step wrote its slot, then attended the block as it is now
-            stats["empty_steps"] += int(not bool((st["unit"][0].k_pos >= 0).any()))
+            stats["empty_steps"] += int(not bool((st["unit"][attn].k_pos >= 0).any()))
         stats["step_all_reduces"] = sh.all_reduce.calls - calls
         stats["step_all_reduce_bytes"] = sh.all_reduce.bytes - nbytes
     stats["step_ms"] = statistics.median(steps) * 1e3
@@ -2147,10 +2199,12 @@ def _shard_train_step(cfg, par=None):
 
 def shard_references(device, refs: str, tag: str = "18") -> None:
     """Each case on one rank, on this card, into ``refs``: serve logits, the
-    train step's loss and parameters, moonshot's logits and routing."""
+    train step's loss and parameters (and the gradients of SHARD_GRADS's
+    leaves), moonshot's logits and routing."""
     import numpy as np
     import torch
     from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.models.api import loss_and_grads
     from repro_torch.models.transformer import forward
     from repro_torch.optim import adamw_init
     for case, (arch, _, _, work) in SHARD_CASES.items():
@@ -2160,14 +2214,21 @@ def shard_references(device, refs: str, tag: str = "18") -> None:
         ref = {}
         if work == "serve":
             B, P, K, C = SHARD_SERVE[case]
-            rng = np.random.default_rng(int(case[2:], 16))
+            rng = np.random.default_rng(int(case[2], 36))
             ref["tokens"] = torch.from_numpy(
                 rng.integers(0, cfg.vocab_size, (B, P + K)).astype(np.int64))
-            logits, ref["times"] = _shard_serve(params, cfg, ref["tokens"], P, C, device)
+            ref["front"] = _shard_front(cfg, B, case)
+            logits, ref["times"] = _shard_serve(params, cfg, ref["tokens"], P, C, device,
+                                                front=ref["front"])
             ref["logits"] = logits.cpu()
         elif work == "train":
             B, S = TRAIN_SHAPE
             batch, opt = _shard_batch(cfg, B, S, device), adamw_init(params)
+            if case in SHARD_GRADS:
+                grads = loss_and_grads(params, batch, cfg, remat="unit")[2]
+                ref["grads"] = {k: v.cpu() for k, v in flatten_with_keys(grads)
+                                if k.startswith(SHARD_GRADS[case])}
+                del grads
             sync(device)
             t1 = time.perf_counter()
             new, _, m = _shard_train_step(cfg)(params, opt, batch, 0)
@@ -2204,36 +2265,58 @@ def _rank_case(case: str, rank: int, device, refs: str) -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention_backward
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import sharding as sh
+    from repro_torch.models.api import loss_and_grads
     from repro_torch.models.transformer import forward
     from repro_torch.optim import adamw_init
-    arch, _, (dp, tp), work = SHARD_CASES[case]
+    arch, _, mesh, work = SHARD_CASES[case]
     cfg = _shard_cfg(case)
-    par = sh.Parallel.of(make_local_mesh(tp, device.type), cfg)
+    tp = mesh[-1]
+    par = sh.Parallel.of(make_local_mesh(tp, device.type, pods=mesh[0] if len(mesh) == 3
+                                         else 1), cfg)
     ref = torch.load(os.path.join(refs, f"{case}.pt"), mmap=True, weights_only=False)
     kernels = kernel_fns()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, specs = _shard_params(cfg, device, par)
-    out = {"mesh": [dp, tp], "seq_axes": None}
+    out = {"mesh": list(mesh), "seq_axes": None}
+    n_sms = (torch.cuda.get_device_properties(device).multi_processor_count
+             if device.type == "cuda" else 132)
     reset_counts(kernels.values())
     if work == "serve":
         B, P, K, C = SHARD_SERVE[case]
         if not cfg.is_attention_free:
             out["seq_axes"] = par.for_batch(B).seq_axes
-        got, out["times"] = _shard_serve(params, cfg, ref["tokens"], P, C, device, par)
+        got, out["times"] = _shard_serve(params, cfg, ref["tokens"], P, C, device, par,
+                                         front=ref["front"])
         counts = {k: v.launches for k, v in kernels.items()}
         want = ref["logits"].to(device)
         out["rel_err"] = float((got - want).abs().max()) / float(want.abs().max())
-        if cfg.ssm_state:
-            n_sms = (torch.cuda.get_device_properties(device).multi_processor_count
-                     if device.type == "cuda" else 132)
+        channels = (cfg.d_inner // tp * cfg.ssm_state if cfg.ssm_state
+                    else cfg.resolved_lru_width // tp if cfg.lru_width else 0)
+        if channels:
+            rows = B // par.dp if par.for_batch(B).batch_covers else B
             out["recurrence_plan"] = str(plan_recurrence(
-                B, min(P, 256), cfg.d_inner // tp * cfg.ssm_state, n_sms))
+                rows, min(P, 256) if cfg.ssm_state else P, channels, n_sms))
             out["recurrence_routes"] = dict(kernels["diag_recurrence"].launches_by_route)
     elif work == "train":
         B, S = TRAIN_SHAPE
         batch, opt = _shard_batch(cfg, B, S, device, par), adamw_init(params)
+        if case in SHARD_GRADS:
+            flat_specs = dict(flatten_with_keys(specs))
+            grads = loss_and_grads(params, batch, cfg, remat="unit", par=par)[2]
+            worst = 0.0
+            for k, v in flatten_with_keys(grads):
+                if k in ref["grads"]:
+                    want = sh.shard_leaf(k, ref["grads"][k], flat_specs[k], par).to(device)
+                    worst = max(worst, float((v - want).abs().max())
+                                / max(float(want.abs().max()), 1e-30))
+            out["grad_rel_err"], out["grads_held"] = worst, len(ref["grads"])
+            del grads
+            reset_counts(kernels.values())
+        if cfg.lru_width:
+            out["recurrence_plan"] = str(plan_recurrence(
+                B // par.dp, S, cfg.resolved_lru_width // tp, n_sms))
         sync(device)
         t1, calls, nbytes = time.perf_counter(), sh.all_reduce.calls, sh.all_reduce.bytes
         new, _, m = _shard_train_step(cfg, par)(params, opt, batch, 0)
@@ -2246,7 +2329,10 @@ def _rank_case(case: str, rank: int, device, refs: str) -> dict:
         out["flash_per_step"] = {"forward": flash.launches_by_pass["forward"],
                                  "recompute": flash.launches_by_pass["recompute"],
                                  "backward": flash_attention_backward.launches}
-        out["local_heads"] = new["unit"][0]["attn"]["wq"].shape[-1] // cfg.resolved_head_dim
+        out["local_heads"] = (new["unit"][_attn_index(cfg)]["attn"]["wq"].shape[-1]
+                              // cfg.resolved_head_dim)
+        if cfg.lru_width:
+            out["recurrence_routes"] = dict(kernels["diag_recurrence"].launches_by_route)
         out["loss"], out["ref_loss"] = float(m["loss"]), ref["loss"]
         flat_specs = dict(flatten_with_keys(specs))
         worst = 0.0
@@ -2310,15 +2396,20 @@ def phase_sharded(device, tmp: str, tag: str = "18") -> dict:
     """The cases of SHARD_CASES on SHARD_RANKS ranks sharing this card over
     gloo (NCCL refuses two ranks on one device; with a card a rank, as on a
     four-card host, the ranks take NCCL), each case on its own
-    ("data", "model") mesh, fp32, held against the same config on one rank
-    on this card: serving logits within SERVE_LOGIT_TOL of max |logit|
-    (qwen3-1.7b at 1 x 4 with its kv heads split 8/4; at batch 1 on 2 x 2 with
-    the cache's positions split over data, the lse merge on the card;
-    fnbench-tiny at 1 x 4 with them split over model and its q heads gathered;
-    in both a rank's block holds no live slot at first; falcon-mamba-7b at 2
-    of 64 layers, its recurrence over d_inner*N/4 channels a rank), one
-    qwen1.5-0.5b train step at 2 x 2 (loss within SHARD_TRAIN_TOL relative,
-    parameters within SHARD_PARAM_TOL), and
+    ("data", "model") or ("pod", "data", "model") mesh, fp32, held against
+    the same config on one rank on this card: serving logits within
+    SERVE_LOGIT_TOL of max |logit| (qwen3-1.7b at 1 x 4 with its kv heads
+    split 8/4; at batch 1 on 2 x 2 with the cache's positions split over
+    data, the lse merge on the card; fnbench-tiny at 1 x 4 with them split
+    over model and its q heads gathered; in both a rank's block holds no live
+    slot at first; falcon-mamba-7b at 2 of 64 layers, its recurrence over
+    d_inner*N/4 channels a rank; recurrentgemma-2b at 1 x 4, 640 LRU
+    channels a rank beside replicated attention; whisper-small at 1 x 4 over
+    1,500 frames; internvl2-1b at 2 x 2 with 7 q heads and 1 kv head a rank
+    after its 256 patches; qwen3-1.7b on the 2 x 1 x 2 multi-pod mesh), one
+    train step each of qwen1.5-0.5b and recurrentgemma-2b (one pattern
+    unit) at 2 x 2 (loss within SHARD_TRAIN_TOL relative, parameters within
+    SHARD_PARAM_TOL, the RG-LRU's gradients within GRAD_TOL), and
     moonshot-v1-16b-a3b at 2 of 48 layers, 16 experts a rank, where its
     routing agrees. The times are collective round trips through the host
     (gloo), not a tensor-parallel speed."""
@@ -2339,23 +2430,25 @@ def phase_sharded(device, tmp: str, tag: str = "18") -> dict:
 
 
 def check_sharded(ranks: list, tag: str = "18") -> dict:
-    """The phase's checks, over every rank's results."""
-    from repro_torch.configs import get_config
+    """The phase's checks, over every rank's results. Each case's summary
+    holds its launches summed over the ranks (``counts``)."""
     counts, out = {}, {}
     for case, (arch, _, mesh, work) in SHARD_CASES.items():
         rs = [r[case] for r in ranks]
         r0 = rs[0]
-        for r in rs:
-            for k, v in r["counts"].items():
-                counts[k] = counts.get(k, 0) + v
+        case_counts = {k: sum(r["counts"][k] for r in rs) for k in r0["counts"]}
+        for k, v in case_counts.items():
+            counts[k] = counts.get(k, 0) + v
         summary = {"mesh": r0["mesh"], "seq_axes": r0["seq_axes"],
                    "seconds": max(r["seconds"] for r in rs), "times": r0["times"],
-                   "peak_gb": [round(r["peak_gb"], 3) for r in rs]}
+                   "peak_gb": [round(r["peak_gb"], 3) for r in rs], "counts": case_counts}
         want = {"serve": ("flash_attention", "decode_attention"),
                 "train": ("flash_attention", "flash_attention_backward"),
                 "forward": ("flash_attention",)}[work]
         if arch == "falcon_mamba_7b":
             want = ("diag_recurrence",)
+        elif arch == "recurrentgemma_2b":
+            want = (*want, "diag_recurrence")
         for k in want:
             expect(all(r["counts"][k] > 0 for r in rs),
                    f"[{case}] {k} was not launched on every rank: "
@@ -2374,11 +2467,15 @@ def check_sharded(ranks: list, tag: str = "18") -> dict:
                 expect(any(0 < n < steps for n in summary["empty_steps"]),
                        f"[{case}] no rank attended an empty block and then a live one: "
                        f"{summary['empty_steps']} of {steps} steps")
-            if "recurrence_plan" in r0:
-                summary["recurrence"] = [r["recurrence_plan"] for r in rs]
-                summary["recurrence_routes"] = [r["recurrence_routes"] for r in rs]
-        elif work == "train":
-            n_layers = get_config(arch).n_layers
+        if "recurrence_plan" in r0:
+            summary["recurrence"] = [r["recurrence_plan"] for r in rs]
+            summary["recurrence_routes"] = [r["recurrence_routes"] for r in rs]
+            if arch == "recurrentgemma_2b":      # W / tp channels: the chunked route
+                expect(all(r["recurrence_routes"]["chunked"] > 0 for r in rs),
+                       f"[{case}] the LRU's recurrence never took the chunked route: "
+                       f"{summary['recurrence_routes']}")
+        if work == "train":
+            n_layers = _attn_layers(_shard_cfg(case))
             rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
             summary.update(loss=r0["loss"], ref_loss=r0["ref_loss"], loss_rel_err=rel,
                            param_err=max(r["param_err"] for r in rs),
@@ -2390,13 +2487,21 @@ def check_sharded(ranks: list, tag: str = "18") -> dict:
             expect(r0["flash_per_step"] == dict.fromkeys(r0["flash_per_step"], n_layers),
                    f"[{case}] flash launches a rank {r0['flash_per_step']}, not "
                    f"{n_layers} each")
-        else:
+            if case in SHARD_GRADS:
+                summary["grad_rel_err"] = max(r["grad_rel_err"] for r in rs)
+                summary["grads_held"] = r0["grads_held"]
+                expect(r0["grads_held"] > 0 and summary["grad_rel_err"] <= GRAD_TOL,
+                       f"[{case}] gradients of {SHARD_GRADS[case]} differ from one rank's "
+                       f"by {summary['grad_rel_err']} of their largest > {GRAD_TOL}")
+        elif work == "forward":
             summary.update(alike=r0["alike"], positions=r0["positions"],
                            rel_err=r0["rel_err"])
             expect(r0["alike"] > 0 and r0["rel_err"] <= SERVE_LOGIT_TOL,
                    f"[{case}] moonshot sharded logits differ by {r0['rel_err']} of max "
                    f"|logit| where routed alike ({r0['alike']} positions)")
-        log(f"[{case}] {arch} on data {mesh[0]} x model {mesh[1]}: {json.dumps(summary)}")
+        axes = ("pod", "data", "model") if len(mesh) == 3 else ("data", "model")
+        log(f"[{case}] {arch} on {' x '.join(f'{a} {n}' for a, n in zip(axes, mesh))}: "
+            f"{json.dumps(summary)}")
         out[case] = summary
     out["counts"] = counts
     return out
@@ -2752,6 +2857,10 @@ def main() -> int:
     path_counts["whisper-cross"] = path_counts["whisper"]
     path_routes = {"falcon": falcon.pop("diag_routes"),
                    "recurrentgemma": griffin.pop("diag_routes")}
+    for name, case in RECURRENCE_CASES.items():      # a sharded case's ranks, summed
+        path_counts[name] = sharded[case]["counts"]
+        path_routes[name] = {route: sum(r[route] for r in sharded[case]["recurrence_routes"])
+                             for route in sharded[case]["recurrence_routes"][0]}
     # flash_attention's cuda_core launches by head dim: each fp32 path runs one
     core_by_d = {}
     for d, run in ((128, serving), (256, griffin), (64, granite), (64, whisper),

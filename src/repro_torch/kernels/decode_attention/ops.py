@@ -21,6 +21,10 @@ return each head's logsumexp of its scores, ``(B, H)`` fp32, which a cache
 whose positions are split over ranks merges with
 (``models/sharding.combine_attention``); the kernel writes it only when its
 pointer is passed.
+
+The kernel is the PyTorch op ``repro_torch::decode_attention``: the plain
+version on the CPU, the kernel on CUDA and a fake implementation for meta
+and fake tensors, which the dry run (``launch/dryrun.py``) traces through.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import check, library, on_device, refuse_grad
 
@@ -128,19 +133,7 @@ def blocks_per_sm(device_index: int, d: int, dtype: torch.dtype, g: int) -> int:
     return n.value
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     valid: torch.Tensor, *, softcap: Optional[float] = None,
-                     scale: Optional[float] = None, return_lse: bool = False):
-    """Attention of q ``(B, H, d)`` over a cache ``(B, Hkv, S, d)`` where
-    ``valid`` (``(S,)`` or ``(B, S)``, bool or integer) marks the live slots;
-    with ``return_lse``, ``(out, lse)`` (see :func:`decode_attention_plain`).
-
-    CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch the
-    kernel (contiguous, 16-byte aligned fp32 or bf16, (d, g) in
-    :data:`SHAPES`), counted in ``decode_attention.launches``. The kernel has
-    no backward: a CUDA input that requires a gradient while grad mode is on
-    raises.
-    """
+def _check_args(q, k_cache, v_cache, valid) -> None:
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"want q (B,H,d) and k/v (B,Hkv,S,d), got {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -158,25 +151,81 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                         f"{v_cache.dtype}")
     if not (q.device == k_cache.device == v_cache.device == valid.device):
         raise ValueError("q, cache and mask must be on one device")
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, valid, softcap=softcap,
-                                      scale=scale, return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
-    refuse_grad("decode_attention", q, k_cache, v_cache)
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
+                         device_types="cpu")
+def _decode_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               valid: torch.Tensor, softcap: Optional[float], scale: Optional[float],
+               with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``; lse ``(B, H)`` fp32 with ``with_lse``, else empty."""
+    if with_lse:
+        return decode_attention_plain(q, k_cache, v_cache, valid, softcap=softcap,
+                                      scale=scale, return_lse=True)
+    return (decode_attention_plain(q, k_cache, v_cache, valid, softcap=softcap,
+                                   scale=scale), q.new_empty((0,), dtype=torch.float32))
+
+
+@_decode_op.register_kernel("cuda")
+def _decode_cuda(q, k_cache, v_cache, valid, softcap, scale, with_lse):
+    B, H, d = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     check_shape(d, H // Hkv)
-    tensors = (q, k_cache, v_cache)
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)):
         raise ValueError("q and the cache must be contiguous and 16-byte aligned")
     if B * Hkv > 65535:
         raise ValueError(f"B*Hkv = {B * Hkv} exceeds the grid limit 65535")
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     fit = blocks_per_sm(q.device.index if q.device.index is not None
                         else torch.cuda.current_device(), d, q.dtype, H // Hkv)
-    return launch_splits(q, k_cache, v_cache, valid, plan_splits(B, Hkv, S, n_sms, fit),
-                         softcap=softcap, scale=scale, return_lse=return_lse)
+    out = launch_splits(q, k_cache, v_cache, valid, plan_splits(B, Hkv, S, n_sms, fit),
+                        softcap=softcap, scale=scale, return_lse=with_lse)
+    return out if with_lse else (out, q.new_empty((0,), dtype=torch.float32))
+
+
+@_decode_op.register_fake
+def _decode_fake(q, k_cache, v_cache, valid, softcap, scale, with_lse):
+    """Shapes only, and the kernel's refusal of an uncompiled (head dim,
+    group) pair, so a traced program the card would refuse fails too."""
+    check_shape(q.shape[2], q.shape[1] // k_cache.shape[1])
+    lse_shape = tuple(q.shape[:2]) if with_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def decode_attention_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """Two products of 2 FLOPs a multiply-add (q.K and p.V) over every slot:
+    an upper bound, since the kernel reads only each row's live extent, which
+    the mask sets at run time."""
+    B, H, d = q_shape
+    return 4 * B * H * k_shape[2] * d
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     valid: torch.Tensor, *, softcap: Optional[float] = None,
+                     scale: Optional[float] = None, return_lse: bool = False):
+    """Attention of q ``(B, H, d)`` over a cache ``(B, Hkv, S, d)`` where
+    ``valid`` (``(S,)`` or ``(B, S)``, bool or integer) marks the live slots;
+    with ``return_lse``, ``(out, lse)`` (see :func:`decode_attention_plain`).
+
+    The PyTorch op ``repro_torch::decode_attention``: CPU tensors run
+    :func:`decode_attention_plain`; CUDA tensors launch the kernel
+    (contiguous, 16-byte aligned fp32 or bf16, (d, g) in :data:`SHAPES`),
+    counted in ``decode_attention.launches``; a fake implementation gives
+    shapes (``torch.export``, meta tensors, the dry run) and refuses the
+    pairs the kernel does. The kernel has no backward: a CUDA input that
+    requires a gradient while grad mode is on raises.
+    """
+    _check_args(q, k_cache, v_cache, valid)
+    if q.device.type == "cuda":
+        refuse_grad("decode_attention", q, k_cache, v_cache)
+    out, lse = _decode_op(q, k_cache, v_cache, valid, softcap,
+                          None if scale is None else float(scale), return_lse)
+    return (out, lse) if return_lse else out
 
 
 def launch_splits(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -34,6 +34,7 @@ import threading
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import check, launch_pass, library, on_device
 
@@ -178,12 +179,21 @@ def _diag_grad(ctx, g_all, g_final):
     g_final = torch.zeros_like(h0) if g_final is None else g_final
     if a.device.type == "cpu":
         fn = diag_recurrence_plain
-    else:
+    elif a.device.type == "cuda":
         fn = functools.partial(_run_cuda, pass_="backward")
+    else:                       # meta or fake tensors: the op's fake, for shapes
+        fn = _diag_op
     return diag_recurrence_backward(a, h0, h_all, g_all, g_final, fn)
 
 
 _diag_op.register_autograd(_diag_grad, setup_context=_diag_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.diag_recurrence)
+def diag_recurrence_flops(a_shape, *args, out_shape=None, **kwargs) -> int:
+    """One multiply and one add per element of a."""
+    B, S, C = a_shape
+    return 2 * B * S * C
 
 
 def diag_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor

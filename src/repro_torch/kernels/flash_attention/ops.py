@@ -20,7 +20,8 @@ version on the CPU, the kernel on CUDA, a fake implementation for
 ``torch.export`` and an autograd formula. When a gradient will be taken the
 fp32 forward also writes each row's log-sum-exp, and the backward runs
 FlashAttention-2's algorithm in CUDA (:func:`flash_attention_backward`,
-fp32 only); a bf16 input that needs a gradient raises on the card.
+fp32 only, itself the op ``repro_torch::flash_attention_backward`` with a
+fake); a bf16 input that needs a gradient raises on the card.
 """
 from __future__ import annotations
 
@@ -30,7 +31,9 @@ import math
 import threading
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import check, launch_pass, library, on_device
 
@@ -259,16 +262,17 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its rows' log-sum-exp ``lse`` and the output's gradient ``dout``.
 
     CPU tensors run :func:`flash_attention_backward_plain` (``out`` and
-    ``lse`` unused); CUDA tensors launch the backward kernels (fp32 only: a
-    bf16 input raises ``TypeError``), counted in
-    ``flash_attention_backward.launches``.
+    ``lse`` unused); other tensors go through the PyTorch op
+    ``repro_torch::flash_attention_backward``: on CUDA it launches the
+    backward kernels (fp32 only: a bf16 input raises ``TypeError``), counted
+    in ``flash_attention_backward.launches``; on meta and fake tensors its
+    fake implementation gives the shapes.
     """
     _check_args(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, dout, causal=causal, window=window,
                                               softcap=softcap, scale=scale)
     B, H, Sq, d = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
     if q.dtype != torch.float32:
         raise TypeError(f"the flash_attention backward on the card takes float32 only, "
                         f"got {q.dtype}")
@@ -278,7 +282,18 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse {tuple(lse.shape)} is not (B, H, Sq): the forward ran "
                          f"without a gradient to take")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    dout = dout.contiguous()
+    return _flash_bwd_op(q, k, v, out, lse, dout.contiguous(), causal, window, softcap,
+                         float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  lse: torch.Tensor, dout: torch.Tensor, causal: bool,
+                  window: Optional[int], softcap: Optional[float], scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     if not all(t.is_contiguous() for t in (q, k, v, out, lse)):
         raise ValueError("q, k, v, out and lse must be contiguous")
     if -(-max(Sq, Sk) // 32) > 65535:
@@ -298,6 +313,41 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _count_lock:
         flash_attention_backward.launches += 1
     return dq, dk, dv
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, dout, causal, window, softcap, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@functools.lru_cache(maxsize=None)
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs the mask leaves, as the plain version's mask
+    places them (query i, key j: ``j <= i`` when causal, ``i - j < window``
+    with a window)."""
+    i = np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window is not None else np.zeros_like(i)
+    hi = np.minimum(i, Sk - 1) if causal else np.full_like(i, Sk - 1)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_attention_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                          out_shape=None, **kwargs) -> int:
+    """Two products of 2 FLOPs a multiply-add (QK^T and PV) over the pairs
+    the mask leaves: the kernel skips the tiles the mask hides."""
+    B, H, Sq, d = q_shape
+    return 4 * B * H * d * attention_pairs(Sq, k_shape[2], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def flash_attention_backward_flops(q_shape, k_shape, v_shape, out_shape_, lse_shape,
+                                   dout_shape, causal, window, *args, out_shape=None,
+                                   **kwargs) -> int:
+    """FlashAttention-2's backward: five products of the forward's size (QK^T
+    again, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q)."""
+    B, H, Sq, d = q_shape
+    return 10 * B * H * d * attention_pairs(Sq, k_shape[2], causal, window)
 
 
 flash_attention.launches = 0

@@ -12,8 +12,9 @@ between the routes (``diag_recurrence.ops.SEQUENTIAL_MIN_THREADS_PER_SM``).
 
 ``--host`` prints the wrappers' host time per call (flash_attention at
 qwen1.5-0.5b's S=64 prefill in bf16 and qwen3-1.7b's fp32 prefill,
-diag_recurrence at the RG-LRU prefill): the median of 200 calls, each from
-an idle device, as serving calls them (no gradient). Through the public
+diag_recurrence at the RG-LRU prefill, decode_attention at qwen3-1.7b's
+and recurrentgemma-2b's decode, with and without its lse): the median of
+200 calls, each from an idle device, as serving calls them (no gradient). Through the public
 wrappers only, so the same file times an earlier tree's as ``--main`` does.
 
 ``--main`` times both kernels at the main paths' shapes through their public
@@ -158,6 +159,11 @@ def time_host(device, rows: list) -> None:
     h0 = torch.randn((B, C), generator=gen, device=device)
     cases.append(("diag_recurrence", f"RG-LRU B{B} S{S} C{C}",
                   lambda: rec.diag_recurrence(a, a, h0)))
+    for label, q, k, v, valid in decode_cases(gen, device):
+        for lse in (False, True):
+            cases.append(("decode_attention", label + (" with lse" if lse else ""),
+                          lambda q=q, k=k, v=v, m=valid, lse=lse: dec.decode_attention(
+                              q, k, v, m, return_lse=lse)))
     for turn, (kernel, label, fn) in itertools.product(range(2), cases):
         for _ in range(10):
             fn()

@@ -12,13 +12,16 @@ environment, and this module joins the process group from it:
     ranks) and joins the default process group on the backend
     ``launch.mesh.choose_backend`` picks; single-process when they are unset;
   * the production mesh across all ranks where there are enough of them,
-    else the local one (``launch/mesh.py``);
-  * ``--role train`` hands over to ``launch/train.py`` with ``--resume``, the
-    checkpoint directory being shared storage: a restore re-shards to the
-    current mesh, so the job may resume on another mesh shape (elastic
-    restart, tests/test_torch_elastic.py); ``--role serve`` hands over to
-    ``launch/serve.py``. ``--role dryrun`` is not ported yet (ROADMAP.md
-    queue 1, item 4: the HLO tools).
+    else the local one (``launch/mesh.py``), with ``--multi-pod`` the
+    ``("pod", "data", "model")`` one (2 pods);
+  * ``--role train`` hands over to ``launch/train.py`` with ``--resume`` (and
+    ``--pods 2`` with ``--multi-pod``), the checkpoint directory being shared
+    storage: a restore re-shards to the current mesh, so the job may resume
+    on another mesh shape (elastic restart, tests/test_torch_elastic.py);
+    ``--role serve`` hands over to ``launch/serve.py`` (a replica a
+    process, as in the reference); ``--role dryrun`` to
+    ``launch/dryrun.py``, in one process with no process group, as the
+    reference's dry run needs no fleet.
 """
 from __future__ import annotations
 
@@ -57,24 +60,27 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args, passthrough = ap.parse_known_args(argv)
     if args.role == "dryrun":
-        raise NotImplementedError("--role dryrun: the HLO tools are not ported yet "
-                                  "(ROADMAP.md queue 1, item 4)")
+        from repro_torch.launch.dryrun import main as dryrun_main
+        dryrun_main(["--arch", args.arch] + passthrough)
+        return
 
     rank, world = initialize_distributed(args.device)
     print(f"[cluster] process {rank}/{world}")
 
     from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    pods = 2 if args.multi_pod else 1
     if world > 1:
         try:
             mesh = make_production_mesh(multi_pod=args.multi_pod, device_type=args.device)
-        except RuntimeError:
-            mesh = make_local_mesh(device_type=args.device)  # smaller fleets
+        except RuntimeError:                                   # smaller fleets
+            mesh = make_local_mesh(device_type=args.device, pods=pods)
         print(f"[cluster] mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
     if args.role == "train":
         from repro_torch.launch.train import main as train_main
         train_main(["--arch", args.arch, "--steps", str(args.steps), "--ckpt-dir",
-                    args.ckpt_dir, "--resume", "--device", args.device] + passthrough)
+                    args.ckpt_dir, "--resume", "--device", args.device,
+                    "--pods", str(pods)] + passthrough)
     else:
         sys.argv = ["serve", "--arch", args.arch, "--reduced", "--device",
                     args.device] + passthrough

@@ -154,13 +154,20 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_local_mesh(model_axis: int = 1, device_type: str = "cuda"):
+def make_local_mesh(model_axis: int = 1, device_type: str = "cuda", pods: int = 1):
     """Every rank, as ('data', 'model') = (world // model_axis, model_axis),
     row-major (rank r at (r // model_axis, r % model_axis)), as the
-    reference's ``Mesh(devices.reshape(...))`` lays them out."""
+    reference's ``Mesh(devices.reshape(...))`` lays them out; with ``pods``
+    > 1, as ('pod', 'data', 'model') = (pods, world // (pods * model_axis),
+    model_axis), the multi-pod mesh's axes."""
     world = _world()
-    if model_axis < 1 or world % model_axis:
-        raise ValueError(f"model axis {model_axis} does not divide {world} ranks")
+    if model_axis < 1 or pods < 1 or world % (model_axis * pods):
+        raise ValueError(f"{pods} pods x model axis {model_axis} do not divide "
+                         f"{world} ranks")
     from torch.distributed.device_mesh import init_device_mesh
+    if pods > 1:
+        return init_device_mesh(device_type, (pods, world // (pods * model_axis),
+                                              model_axis),
+                                mesh_dim_names=("pod", "data", "model"))
     return init_device_mesh(device_type, (world // model_axis, model_axis),
                             mesh_dim_names=("data", "model"))

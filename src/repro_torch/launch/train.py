@@ -11,7 +11,9 @@ with TF32 off, as the reference trains.
 
 On several ranks (``launch/cluster.py``'s environment, or a process group
 the caller made) it trains on a ``("data", "model")`` mesh of
-``world // --model-axis`` by ``--model-axis`` ranks: each rank holds its
+``world // --model-axis`` by ``--model-axis`` ranks, or with ``--pods N`` > 1
+on a ``("pod", "data", "model")`` mesh of N pods (data parallelism over pod x
+data, the reference's multi-pod layout): each rank holds its
 shards of the parameters and moments (``models/sharding.py``) and its rows
 of each global batch, and checkpoints hold the global arrays
 (``ShardedCheckpointer``), so ``--resume`` may change the mesh. Without a
@@ -20,6 +22,8 @@ rendezvous; ``gloo`` on the CPU or where the ranks share a card, ``nccl``
 where each has its own), which print; rank 0 writes the log.
 
   python -m repro_torch.launch.train --arch fnbench_tiny --steps 3 --model-axis 2 --device cpu
+  python -m repro_torch.launch.train --arch fnbench_tiny --steps 3 --model-axis 2 --pods 2 \
+      --device cpu                 # 4 local ranks on a (2, 1, 2) pod x data x model mesh
 
 Each step's metrics, with its wall time in ``seconds`` (the first one
 includes the anchor checkpoint), go to ``--log`` as JSON lines; :func:`main`
@@ -48,6 +52,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--remat", default="none", choices=["none", "unit", "dots"])
     ap.add_argument("--log", default="results/train_log.jsonl")
     ap.add_argument("--device", default=None,
@@ -72,9 +77,9 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     rank, world = initialize_distributed(device.type)
-    if world == 1 and args.model_axis > 1:
-        return _spawn_ranks(sys.argv[1:] if argv is None else argv, args.model_axis,
-                            device.type)
+    if world == 1 and args.model_axis * args.pods > 1:
+        return _spawn_ranks(sys.argv[1:] if argv is None else argv,
+                            args.model_axis * args.pods, device.type)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -82,13 +87,13 @@ def main(argv=None) -> dict:
     par = None
     if world > 1:
         device = rank_device(device.type, int(os.environ.get("LOCAL_RANK", rank)))
-        par = sh.Parallel.of(make_local_mesh(args.model_axis, device.type), cfg)
+        par = sh.Parallel.of(make_local_mesh(args.model_axis, device.type, args.pods), cfg)
         if args.batch % par.dp:
-            raise ValueError(f"--batch {args.batch} does not split over the data axis "
+            raise ValueError(f"--batch {args.batch} does not split over the data axes "
                              f"({par.dp})")
         if rank == 0:
-            print(f"[train] mesh data={par.dp} x model={par.tp}, backend "
-                  f"{dist.get_backend()}, {world} ranks")
+            print(f"[train] mesh {' x '.join(f'{a}={n}' for a, n in zip(par.axes, par.sizes))}"
+                  f", backend {dist.get_backend()}, {world} ranks")
 
     params = init_params(torch.Generator(device=device).manual_seed(args.seed), cfg,
                          torch.float32)

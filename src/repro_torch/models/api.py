@@ -12,8 +12,9 @@ never exist at once.
 
 Every step takes ``par`` (``models/sharding.Parallel``) to run on a mesh of
 ranks: the cross-entropy is vocab-parallel, the loss is normalised over the
-global batch, the train step averages gradients over ``data`` with one
-``all_reduce``, and the serve steps take the argmax across vocab shards.
+global batch, the train step averages gradients over the data axes
+(``data``, or ``pod`` x ``data``) with one ``all_reduce``, and the serve
+steps take the argmax across vocab shards.
 """
 from __future__ import annotations
 

@@ -19,7 +19,11 @@ through ``kernels/decode_attention`` over them with an all-valid mask. The
 reference computes both with its jnp blockwise path. The encoder keys and
 values are projected once per prompt (:func:`project_cross_kv`) and kept
 ``(B, Hkv, Senc, hd)``, the cache layout, so the kernels read them without
-a transpose; the reference keeps them ``(B, Senc, Hkv, hd)``.
+a transpose; the reference keeps them ``(B, Senc, Hkv, hd)``. Under tensor
+parallelism the cross attention splits its heads as self attention does,
+but the decode state keeps every kv head (replicated over ``model``, as the
+reference's rule has it): a prompt gathers its layers' projected heads
+(:func:`whole_cross_kv`) and a decode step slices the heads its q heads use.
 
 Dtypes: where activations and cache or weights differ, the port promotes as
 JAX does (``layers.promote`` / ``layers.matmul``).
@@ -113,19 +117,21 @@ def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchCon
     return q, k, v
 
 
-def _kv_for_local_q(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, par: Parallel):
-    """Replicated k/v (B, S, Hkv, hd) -> the kv heads this rank's q heads use,
-    in a uniform group: a slice where its q heads cover whole groups or lie
-    in one, else one kv head per q head."""
+def _kv_for_local_q(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, par: Parallel,
+                    dim: int = 2):
+    """Replicated k/v (B, S, Hkv, hd), or with ``dim=1`` (B, Hkv, S, hd) ->
+    the kv heads this rank's q heads use, in a uniform group: a slice where
+    its q heads cover whole groups or lie in one, else one kv head per q
+    head."""
     g_ = cfg.n_heads // cfg.n_kv_heads
     h0, h1 = par.span(cfg.n_heads)
     idx = [h // g_ for h in range(h0, h1)]
     first, n = idx[0], idx[-1] - idx[0] + 1
     gl = (h1 - h0) // n
     if gl * n == h1 - h0 and idx == [first + i // gl for i in range(h1 - h0)]:
-        return k[:, :, first:first + n], v[:, :, first:first + n]
+        return k.narrow(dim, first, n), v.narrow(dim, first, n)
     at = torch.tensor(idx, device=k.device)
-    return k.index_select(2, at), v.index_select(2, at)
+    return k.index_select(dim, at), v.index_select(dim, at)
 
 
 # ---------------------------------------------------------------------------------
@@ -351,42 +357,77 @@ def attention_decode(
 # Cross attention (encoder-decoder)
 # ---------------------------------------------------------------------------------
 
-def project_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ArchConfig):
+def project_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ArchConfig,
+                     par: Optional[Parallel] = None):
     """The encoder output's keys and values for one cross-attention layer,
-    each ``(B, Hkv, Senc, hd)``."""
-    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    each ``(B, Hkv, Senc, hd)``: with ``par``, this rank's kv heads where
+    they split over ``model``."""
+    hd = cfg.resolved_head_dim
     B, Senc = enc_out.shape[:2]
-    k = matmul(enc_out, params["wk"]).reshape(B, Senc, hk, hd)
-    v = matmul(enc_out, params["wv"]).reshape(B, Senc, hk, hd)
+    x = f(enc_out, par) if _sharded(par)[1] else enc_out
+    k = matmul(x, params["wk"]).reshape(B, Senc, -1, hd)
+    v = matmul(x, params["wv"]).reshape(B, Senc, -1, hd)
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
-def _cross_q(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    q = matmul(x, params["wq"])
+def whole_cross_kv(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig,
+                   par: Optional[Parallel] = None):
+    """A layer's cross keys and values with every kv head, as the decode
+    state keeps them: replicated over ``model`` and split over the batch
+    only (the reference's rule: Senc = 1500 and 12 kv heads do not divide
+    the model axis). Gathered (no gradient) where :func:`project_cross_kv`
+    gave this rank's heads."""
+    if not _sharded(par)[1]:
+        return k, v
+    return gather_dim(k, 1, "model", par), gather_dim(v, 1, "model", par)
+
+
+def _cross_q(params: dict, x: torch.Tensor, cfg: ArchConfig,
+             par: Optional[Parallel] = None) -> torch.Tensor:
+    """(B, Sq, H, hd): this rank's q heads where they split over ``model``."""
+    q = matmul(f(x, par) if _sharded(par)[0] else x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
-    return q.reshape(*x.shape[:-1], cfg.n_heads, cfg.resolved_head_dim)
+    return q.reshape(*x.shape[:-1], -1, cfg.resolved_head_dim)
+
+
+def _cross_out(out: torch.Tensor, params: dict, x: torch.Tensor,
+               par: Optional[Parallel]) -> torch.Tensor:
+    out = matmul(out.reshape(*x.shape[:-1], -1), params["wo"])
+    return g(out, par) if _sharded(par)[0] else out
 
 
 def cross_attention(params: dict, x: torch.Tensor, enc_k: torch.Tensor,
                     enc_v: torch.Tensor, cfg: ArchConfig, *,
-                    attention_fn: Callable = flash_attention) -> torch.Tensor:
+                    attention_fn: Callable = flash_attention,
+                    par: Optional[Parallel] = None) -> torch.Tensor:
     """x (B, Sq, D) over the encoder's keys and values ``(B, Hkv, Senc, hd)``,
     non-causal -> (B, Sq, D). ``attention_fn`` is the core: the kernel wrapper
-    by default, or its plain version."""
-    q = _cross_q(params, x, cfg)
-    qh, k, v = promote(q.transpose(1, 2).contiguous(), enc_k, enc_v)
+    by default, or its plain version. With ``par`` the keys are
+    :func:`project_cross_kv`'s: a rank whose q heads split over ``model``
+    beside replicated kv heads takes the kv heads its q heads use."""
+    shard_q, shard_kv = _sharded(par)
+    q = _cross_q(params, x, cfg, par)
+    if shard_q and not shard_kv:
+        enc_k, enc_v = _kv_for_local_q(f(enc_k, par), f(enc_v, par), cfg, par, dim=1)
+    qh, k, v = promote(q.transpose(1, 2).contiguous(), enc_k.contiguous(),
+                       enc_v.contiguous())
     out = attention_fn(qh, k, v, causal=False, window=None, softcap=None)
-    return matmul(out.transpose(1, 2).reshape(*x.shape[:-1], -1), params["wo"])
+    return _cross_out(out.transpose(1, 2), params, x, par)
 
 
 def cross_attention_decode(params: dict, x: torch.Tensor, enc_k: torch.Tensor,
                            enc_v: torch.Tensor, valid: torch.Tensor, cfg: ArchConfig, *,
-                           decode_fn: Callable = decode_kernel) -> torch.Tensor:
+                           decode_fn: Callable = decode_kernel,
+                           par: Optional[Parallel] = None) -> torch.Tensor:
     """One token's cross attention: x (B, 1, D) -> (B, 1, D), through the
     one-query core over the encoder positions ``valid`` (Senc,) marks (all of
-    them, in the model)."""
-    q = _cross_q(params, x, cfg)
-    qh, k, v = promote(q[:, 0].contiguous(), enc_k, enc_v)
+    them, in the model). The keys and values are the decode state's, every
+    kv head (:func:`whole_cross_kv`); with ``par`` a rank whose q heads split
+    over ``model`` attends over the kv heads they use."""
+    q = _cross_q(params, x, cfg, par)
+    if _sharded(par)[0]:
+        enc_k, enc_v = _kv_for_local_q(enc_k, enc_v, cfg, par, dim=1)
+    qh, k, v = promote(q[:, 0].contiguous(), enc_k.contiguous(), enc_v.contiguous())
     out = decode_fn(qh, k, v, valid, softcap=None)
-    return matmul(out.reshape(*x.shape[:-1], -1), params["wo"])
+    return _cross_out(out, params, x, par)

@@ -22,17 +22,22 @@ JAX's (``['unit'][0]['attn']['wq']``). The reference's environment-gated
 In the reference the specs are only a layout and XLA's partitioner adds the
 collectives. PyTorch has no partitioner for the port's kernels, so this
 module also runs the partitioned program: :class:`Parallel` holds a rank's
-place on a ``("data", "model")`` mesh of ``torch.distributed`` ranks;
+place on a ``("data", "model")`` or ``("pod", "data", "model")`` mesh of
+``torch.distributed`` ranks (data parallelism over ``pod`` x ``data``);
 :func:`shard_tree` cuts a rank's shard of a global tree and
 :func:`gather_tree` rebuilds the global tree; :func:`f` and :func:`g` are the
 Megatron pair of autograd ops around every tensor-parallel region (``f``:
 identity forward, ``all_reduce`` over ``model`` backward, on each replicated
 tensor just before it enters a rank's share of the work; ``g``:
 ``all_reduce`` forward, identity backward, after each row-parallel product),
-so every replicated leaf's gradient comes out whole and equal on all ranks.
-The only collectives are ``all_reduce`` and ``broadcast``: the gloo backend
-takes CUDA tensors for those two only, and so one code path serves several
-ranks sharing one card (gloo), one rank per card (NCCL) and CPU ranks (gloo).
+so every replicated leaf's gradient comes out whole and equal on all ranks;
+:func:`gather_model` is a differentiable gather over ``model`` (the RG-LRU's
+gates read the whole width). The only collectives are ``all_reduce`` and
+``broadcast``: the gloo backend takes CUDA tensors for those two only, and so
+one code path serves several ranks sharing one card (gloo), one rank per card
+(NCCL) and CPU ranks (gloo). Both are counted (:func:`collective_counts`),
+and under :func:`dry_collectives` they are only counted, which lets the dry
+run trace one rank's program with no process group.
 
 One deviation from the layout the spec names: the SSM's ``in_proj`` is
 ``(D, 2 * d_inner)`` with x and z side by side, and its ``P(None, 'model')``
@@ -44,16 +49,18 @@ stays the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
+import pickle
 import re
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.config import RECURRENT, ArchConfig
+from repro_torch.models.config import ArchConfig
 
 
 def map_with_path(fn, tree, *rest):
@@ -308,46 +315,106 @@ def decode_state_pspecs(cfg: ArchConfig, state: Any, dp_axes: Tuple[str, ...],
 # A rank's place on the mesh
 # ---------------------------------------------------------------------------------
 
-#: ROADMAP.md queue 1, item 4: the families that run at model axis > 1 later
-NOT_YET = ("RG-LRU, encoder-decoder and VLM families at model axis > 1 are not "
-           "ported yet (ROADMAP.md queue 1, item 4)")
+#: the meshes the port runs: the reference's single-pod and multi-pod axes
+MESH_AXES = (("data", "model"), ("pod", "data", "model"))
+
+
+def _axis_set(axes) -> frozenset:
+    return frozenset((axes,) if isinstance(axes, str) else axes)
+
+
+def mesh_groups(mesh) -> Dict[frozenset, Any]:
+    """The process group of every proper subset of ``mesh``'s axes (the ranks
+    that share this rank's coordinates on the other axes), keyed by the set
+    of names; the whole set is the default group. Single axes are the mesh's
+    own groups; a pair of axes of a 3-D mesh is made here, one group per
+    coordinate of the third axis (``new_subgroups_by_enumeration``: every
+    rank makes every group, in the same order)."""
+    names = tuple(mesh.mesh_dim_names)
+    ranks = mesh.mesh
+    groups = {frozenset((n,)): mesh.get_group(n) for n in names}
+    for size in range(2, len(names)):
+        for subset in itertools.combinations(range(len(names)), size):
+            rest = [d for d in range(len(names)) if d not in subset]
+            moved = ranks.permute(*rest, *subset).reshape(
+                -1, math.prod(ranks.shape[d] for d in subset))
+            groups[frozenset(names[d] for d in subset)] = \
+                dist.new_subgroups_by_enumeration(moved.tolist())[0]
+    return groups
 
 
 @dataclasses.dataclass(frozen=True)
 class Parallel:
-    """This rank's place on a ``("data", "model")`` mesh, for one config.
+    """This rank's place on a ``("data", "model")`` or ``("pod", "data",
+    "model")`` mesh, for one config.
 
-    ``batch`` is the global batch a prefill or decode state serves (set by
-    :meth:`for_batch`): it decides whether the batch is split over ``data``
-    or a decode cache's positions are.
+    Data parallelism runs over the product of the axes before ``model``
+    (``dp_axes``), ``pod`` major, as JAX lays out a tuple axis. ``batch`` is
+    the global batch a prefill or decode state serves (set by
+    :meth:`for_batch`): it decides whether the batch is split over
+    ``dp_axes`` or a decode cache's positions are. ``groups`` maps a set of
+    axis names to its process group (:func:`mesh_groups`); a placeholder
+    (:meth:`placeholder`) has none and runs its collectives under
+    :func:`dry_collectives` only.
     """
     cfg: ArchConfig
-    dp: int
-    tp: int
-    dp_rank: int
-    tp_rank: int
-    data_group: Any = None
-    model_group: Any = None
+    axes: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    coords: Tuple[int, ...]
+    groups: Dict[frozenset, Any] = dataclasses.field(default_factory=dict, compare=False,
+                                                     hash=False, repr=False)
     batch: Optional[int] = None
 
     @classmethod
     def of(cls, mesh, cfg: ArchConfig) -> "Parallel":
-        """From a 2-D ``DeviceMesh`` named ``("data", "model")``. Raises
-        NotImplementedError for a family not in this slice at model axis > 1."""
-        dp_axes, _ = mesh_axes(mesh)
-        if dp_axes != ("data",):
-            raise NotImplementedError(f"execution runs on a ('data', 'model') mesh, got "
-                                      f"{tuple(mesh.mesh_dim_names)}")
-        dp, tp = mesh.size(0), mesh.size(1)
-        if tp > 1 and (RECURRENT in cfg.attn_pattern or cfg.is_encoder_decoder
-                       or cfg.frontend == "vision_patches"):
-            raise NotImplementedError(f"{cfg.name}: {NOT_YET}")
-        coord = mesh.get_coordinate()
-        return cls(cfg, dp, tp, coord[0], coord[1], mesh.get_group("data"),
-                   mesh.get_group("model"))
+        """From a ``DeviceMesh`` named as one of :data:`MESH_AXES`."""
+        names = tuple(mesh.mesh_dim_names)
+        if names not in MESH_AXES:
+            raise ValueError(f"the mesh's axes must be one of {MESH_AXES}, got {names}")
+        return cls(cfg, names, tuple(mesh.size(i) for i in range(len(names))),
+                   tuple(mesh.get_coordinate()), mesh_groups(mesh))
+
+    @classmethod
+    def placeholder(cls, cfg: ArchConfig, axes: Tuple[str, ...], sizes: Tuple[int, ...]
+                    ) -> "Parallel":
+        """Rank 0 of a mesh of ``sizes`` that has no process group: its
+        shards' shapes are every rank's (the cut is uniform), and its
+        collectives run only under :func:`dry_collectives` (the dry run)."""
+        if tuple(axes) not in MESH_AXES or len(sizes) != len(axes):
+            raise ValueError(f"the mesh's axes must be one of {MESH_AXES}, got {axes}")
+        return cls(cfg, tuple(axes), tuple(sizes), (0,) * len(axes))
 
     def for_batch(self, batch: int) -> "Parallel":
         return dataclasses.replace(self, batch=batch)
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        return self.axes[:-1]
+
+    @property
+    def dp(self) -> int:
+        return math.prod(self.sizes[:-1])
+
+    @property
+    def tp(self) -> int:
+        return self.sizes[-1]
+
+    @property
+    def dp_rank(self) -> int:
+        return self.block(self.dp_axes)[1]
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coords[-1]
+
+    @property
+    def data_group(self):
+        """The group data parallelism runs over (all of ``dp_axes``)."""
+        return self.group(self.dp_axes)
+
+    @property
+    def model_group(self):
+        return self.group("model")
 
     @property
     def caps(self) -> Dict[str, bool]:
@@ -361,7 +428,7 @@ class Parallel:
 
     @property
     def seq_axes(self) -> Optional[Tuple[str, ...]]:
-        return _seq_axes(self.caps, ("data",), self.batch_covers)
+        return _seq_axes(self.caps, self.dp_axes, self.batch_covers)
 
     def block(self, axes) -> Tuple[int, int]:
         """(count, index) of this rank's block of a dimension split over
@@ -370,21 +437,19 @@ class Parallel:
             return 1, 0
         count, index = 1, 0
         for a in (axes,) if isinstance(axes, str) else axes:
-            n, i = (self.dp, self.dp_rank) if a == "data" else (self.tp, self.tp_rank)
-            count, index = count * n, index * n + i
+            i = self.axes.index(a)
+            count, index = count * self.sizes[i], index * self.sizes[i] + self.coords[i]
         return count, index
 
     def group(self, axes):
         """The process group spanning ``axes`` (None: the default group, all
-        ranks)."""
-        names = {axes} if isinstance(axes, str) else set(axes)
-        if names == {"model"}:
-            return self.model_group
-        if names == {"data"}:
-            return self.data_group
-        if names == {"data", "model"}:
+        ranks; a placeholder has none)."""
+        names = _axis_set(axes)
+        if not names <= set(self.axes):
+            raise ValueError(f"no group for axes {axes} on a mesh of {self.axes}")
+        if names == set(self.axes) or not self.groups:
             return None
-        raise ValueError(f"no group for axes {axes}")
+        return self.groups[names]
 
     def span(self, n: int, axes="model") -> Tuple[int, int]:
         """[lo, hi) of this rank's block of a length-``n`` dimension split
@@ -404,10 +469,27 @@ def tp_of(par: Optional[Parallel]) -> int:
 # Collectives and the Megatron pair
 # ---------------------------------------------------------------------------------
 
+_DRY = [False]      # process-wide: a backward may run on another thread
+
+
+@contextlib.contextmanager
+def dry_collectives():
+    """Collectives inside are counted as they would run and return their
+    input unchanged, with no process group: the dry run traces one rank's
+    program this way (``launch/dryrun.py``)."""
+    before, _DRY[0] = _DRY[0], True
+    try:
+        yield
+    finally:
+        _DRY[0] = before
+
+
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In place over ``group``; returns ``x``. Counted in ``all_reduce.calls``
-    and ``all_reduce.bytes`` (this rank's tensor)."""
-    dist.all_reduce(x, op=op, group=group)
+    and ``all_reduce.bytes`` (this rank's tensor), under
+    :func:`dry_collectives` too."""
+    if not _DRY[0]:
+        dist.all_reduce(x, op=op, group=group)
     all_reduce.calls += 1
     all_reduce.bytes += x.numel() * x.element_size()
     return x
@@ -415,6 +497,14 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 all_reduce.calls = 0
 all_reduce.bytes = 0
+
+
+def collective_counts() -> Dict[str, Dict[str, int]]:
+    """The collective counters, by kind: ``{kind: {"calls", "bytes"}}``
+    (``broadcast`` counts :func:`broadcast_object`)."""
+    return {"all_reduce": {"calls": all_reduce.calls, "bytes": all_reduce.bytes},
+            "broadcast": {"calls": broadcast_object.calls,
+                          "bytes": broadcast_object.bytes}}
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -456,7 +546,8 @@ def g(x: torch.Tensor, par: Optional[Parallel]) -> torch.Tensor:
 
 def gather_dim(x: torch.Tensor, dim: int, axes, par: Parallel) -> torch.Tensor:
     """The whole of a dimension split over ``axes``: this rank's block placed
-    in a zero-filled buffer, ``all_reduce``d over their group (no gradient)."""
+    in a zero-filled buffer, ``all_reduce``d over their group (no gradient;
+    :func:`gather_model` is the differentiable one)."""
     count, index = par.block(axes)
     if count == 1:
         return x
@@ -466,6 +557,27 @@ def gather_dim(x: torch.Tensor, dim: int, axes, par: Parallel) -> torch.Tensor:
     out = x.new_zeros(shape)
     out.narrow(dim, index * n, n).copy_(x)
     return all_reduce(out, par.group(axes))
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, par):
+        ctx.dim, ctx.par, ctx.n = dim, par, x.shape[dim]
+        return gather_dim(x.contiguous(), dim, "model", par)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = all_reduce(grad.contiguous().clone(), ctx.par.model_group)
+        return whole.narrow(ctx.dim, ctx.par.tp_rank * ctx.n, ctx.n), None, None
+
+
+def gather_model(x: torch.Tensor, dim: int, par: Optional[Parallel]) -> torch.Tensor:
+    """The whole of dimension ``dim`` split over ``model``, differentiable:
+    the backward sums the incoming gradient over ``model`` (each rank's
+    consumers of the whole contribute a part) and keeps this rank's block."""
+    if tp_of(par) == 1:
+        return x
+    return _GatherFromModel.apply(x, dim, par)
 
 
 def combine_attention(out: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
@@ -591,10 +703,19 @@ def sharded_mask(specs: Any) -> list:
 
 
 def broadcast_object(obj: Any, src: int = 0) -> Any:
-    """``obj`` of rank ``src`` on every rank (through ``broadcast``)."""
+    """``obj`` of rank ``src`` on every rank (through ``broadcast``); counted
+    in ``broadcast_object.calls`` and ``.bytes`` (its pickle), under
+    :func:`dry_collectives` too."""
     box = [obj]
-    dist.broadcast_object_list(box, src=src)
+    if not _DRY[0]:
+        dist.broadcast_object_list(box, src=src)
+    broadcast_object.calls += 1
+    broadcast_object.bytes += len(pickle.dumps(box[0]))
     return box[0]
+
+
+broadcast_object.calls = 0
+broadcast_object.bytes = 0
 
 
 def barrier(device) -> None:

@@ -23,12 +23,15 @@ encoder-decoder ``cross``: each unit's encoder keys and values,
 ``Senc, Hkv, hd``; the port keeps the cache layout its kernels read).
 
 Every entry point takes ``par``, a rank's place on a ``("data", "model")``
-mesh (:class:`~repro_torch.models.sharding.Parallel`), or None for one
-rank. With it the parameters are the rank's shards
-(``sharding.shard_tree``), the tokens its rows of the batch where the batch
-covers the data axis, logits come out as its block of the vocabulary
-(``sharding.gather_vocab`` joins them) and each rank builds and updates only
-its part of the decode state.
+or ``("pod", "data", "model")`` mesh
+(:class:`~repro_torch.models.sharding.Parallel`), or None for one rank.
+With it the parameters are the rank's shards (``sharding.shard_tree``), the
+tokens (and a VLM's patches or whisper's frames) its rows of the batch where
+the batch covers the data axes, logits come out as its block of the
+vocabulary (``sharding.gather_vocab`` joins them) and each rank builds and
+updates only its part of the decode state. Every family runs at any model
+axis the reference's rules cut: whisper's encoder layers are
+tensor-parallel like the decoder's, and its cross state is kept whole.
 """
 from __future__ import annotations
 
@@ -156,7 +159,7 @@ def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str
         return x + out, st, None
     if ltype == RECURRENT:
         out, st = rglru_mod.rglru_prefill(p["rec"], h, cfg, make_state=make_state,
-                                          recurrence_fn=recurrence_fn)
+                                          recurrence_fn=recurrence_fn, par=par)
     else:
         out = attn.attention_prefill(p["attn"], h, cfg, ltype, positions, causal=causal,
                                      attention_fn=attention_fn, make_cache=make_state,
@@ -166,7 +169,7 @@ def _apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, ltype: str
     if cross_kv is not None:
         hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
         x = x + attn.cross_attention(p["xattn"], hx, *cross_kv, cfg,
-                                     attention_fn=attention_fn)
+                                     attention_fn=attention_fn, par=par)
     x, aux = _apply_mlp_part(p, x, cfg, par=par)
     return x, st, aux
 
@@ -202,10 +205,13 @@ def _stack(states):
 
 
 def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ArchConfig, *,
-           attention_fn: Callable = flash_attention, remat: bool = False) -> torch.Tensor:
+           attention_fn: Callable = flash_attention, remat: bool = False,
+           par: Optional[Parallel] = None) -> torch.Tensor:
     """frames: (B, Senc, D) stub embeddings -> the encoder output, through
     ``n_enc_layers`` non-causal global layers in the parameters' dtype; with
-    ``remat`` each layer is recomputed in the backward."""
+    ``remat`` each layer is recomputed in the backward. With ``par`` the
+    layers are tensor-parallel (their shards of ``params["enc"]``) and the
+    frames and the output are replicated over ``model``."""
     x = frames.to(params["enc_norm"]["scale"].dtype)
     S = x.shape[1]
     x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)
@@ -213,7 +219,7 @@ def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ArchConfig, *,
 
     def layer(x, u):
         return _apply_layer(_index(params["enc"], u), x, cfg, GLOBAL_ATTN, positions,
-                            attention_fn, diag_recurrence, causal=False)[0]
+                            attention_fn, diag_recurrence, causal=False, par=par)[0]
 
     layer = _remat(layer, "unit" if remat else "none")
     for u in range(cfg.n_enc_layers):
@@ -271,7 +277,7 @@ def forward(
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name} needs stub frame embeddings (frontend_embeds)")
         enc_out = encode(params, frontend_embeds, cfg, attention_fn=attention_fn,
-                         remat=remat != "none")
+                         remat=remat != "none", par=par)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     elif frontend_embeds is not None:       # VLM: prepend the patch embeddings
         x = torch.cat([frontend_embeds.to(x.device, x.dtype), x], dim=1)
@@ -291,13 +297,14 @@ def forward(
             p = _index(params["unit"][i], u)
             ck = None
             if enc_out is not None:
-                ck = attn.project_cross_kv(p["xattn"], enc_out, cfg)
+                ck = attn.project_cross_kv(p["xattn"], enc_out, cfg, par)
             x, st, a = _apply_layer(p, x, cfg, ltype, positions, cross_kv=ck, **run)
             aux = _add_aux(aux, a)
             unit_states[i].append(st)
         if enc_out is not None and make_state:   # the reference keeps the unit's last
-            cross_k.append(ck[0])                 # layer's
-            cross_v.append(ck[1])
+            kv = attn.whole_cross_kv(*ck, cfg, par)   # layer's, replicated over model
+            cross_k.append(kv[0])
+            cross_v.append(kv[1])
         return x, aux
 
     unit = _remat(unit, remat)
@@ -344,7 +351,7 @@ def _apply_layer_decode(p: Dict[str, Any], x: torch.Tensor, st, pos: torch.Tenso
         out, st = ssm_mod.ssm_decode(p["ssm"], h, st, cfg, par)
         return x + out, st
     if ltype == RECURRENT:
-        out, st = rglru_mod.rglru_decode(p["rec"], h, st, cfg)
+        out, st = rglru_mod.rglru_decode(p["rec"], h, st, cfg, par)
     else:
         out, st = attn.attention_decode(p["attn"], h, st, pos, cfg, ltype,
                                         decode_fn=decode_fn, par=par)
@@ -352,7 +359,7 @@ def _apply_layer_decode(p: Dict[str, Any], x: torch.Tensor, st, pos: torch.Tenso
     if cross_kv is not None:
         hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
         x = x + attn.cross_attention_decode(p["xattn"], hx, *cross_kv, cfg,
-                                            decode_fn=decode_fn)
+                                            decode_fn=decode_fn, par=par)
     return _apply_mlp_part(p, x, cfg, decode=True, par=par)[0], st
 
 
@@ -361,7 +368,7 @@ def _empty_layer_state(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dt
     if ltype == SSM:
         return ssm_mod.empty_ssm_state(cfg, batch, dtype, device, par)
     if ltype == RECURRENT:
-        return rglru_mod.empty_rglru_state(cfg, batch, dtype, device)
+        return rglru_mod.empty_rglru_state(cfg, batch, dtype, device, par)
     return attn.empty_cache(cfg, ltype, batch, seq_len, dtype, device, par)
 
 

@@ -77,25 +77,30 @@ def sharded_exec_rank(rank: int, world: int, job: dict) -> dict:
 
     * ``job['train']`` (global batch): the loss and gradients, and the
       parameters after one train step, gathered;
-    * ``job['decode']``: prefill of ``prompt`` then teacher-forced decode of
-      ``steps``, the logits of each, gathered;
+    * ``job['decode']``: prefill of ``prompt`` (after the stub frontend's
+      ``front``, if any) then teacher-forced decode of ``steps``, the logits
+      of each, gathered;
     * ``job['empty']``: the serve step's tokens from an empty state.
 
-    Every rank returns its replicated leaves' gradients; rank 0 also the
-    gathered results."""
+    ``job['mesh']`` is (data, model) or (pod, data, model). Every rank
+    returns its replicated leaves' gradients; rank 0 also the gathered
+    results."""
     from repro_torch.configs import get_reduced
     from repro_torch.core.pages import params_from_numpy
     from repro_torch.core.tree import flatten_with_keys
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import sharding as sh
-    from repro_torch.models.api import (loss_and_grads, make_serve_step,
-                                        make_serve_step_with_logits, make_train_step)
+    from repro_torch.models.api import (frontend_embeds_from_batch, loss_and_grads,
+                                        make_serve_step, make_serve_step_with_logits,
+                                        make_train_step)
     from repro_torch.models.transformer import forward, init_decode_state
     from repro_torch.optim import adamw_init
 
     cfg = get_reduced(job["arch"], **job.get("overrides", {}))
-    dp, tp = job["mesh"]
-    par = sh.Parallel.of(make_local_mesh(tp, "cpu"), cfg)
+    *dps, tp = job["mesh"]
+    par = sh.Parallel.of(make_local_mesh(tp, "cpu", pods=dps[0] if len(dps) == 2 else 1),
+                         cfg)
+    dp = par.dp
     full = params_from_numpy(job["params"])
     specs = sh.param_pspecs(cfg, full, tp)
     out: dict = {"rank": rank}
@@ -108,7 +113,7 @@ def sharded_exec_rank(rank: int, world: int, job: dict) -> dict:
         return a[par.dp_rank * n:(par.dp_rank + 1) * n]
 
     def whole_rows(t, covers):
-        return sh.gather_dim(t.contiguous(), 0, "data", par) if covers else t
+        return sh.gather_dim(t.contiguous(), 0, par.dp_axes, par) if covers else t
 
     if "decode" in job:
         d = job["decode"]
@@ -116,7 +121,9 @@ def sharded_exec_rank(rank: int, world: int, job: dict) -> dict:
         pb = par.for_batch(prompt.shape[0])
         covers = pb.batch_covers
         params = sh.shard_tree(full, specs, par)
+        front = {k: rows(v, covers) for k, v in d.get("front", {}).items()}
         logits, state = forward(params, rows(prompt, covers), cfg, make_state=True,
+                                frontend_embeds=frontend_embeds_from_batch(front, cfg),
                                 state_len=d["state_len"], logits_slice=1, par=pb)
         got = [whole_rows(sh.gather_vocab(logits[:, -1], pb), covers)]
         serve = make_serve_step_with_logits(cfg, pb)
@@ -245,3 +252,31 @@ def combine_rank(rank: int, world: int) -> dict:
                                        softcap=30.0, return_lse=True)
     got = combine_attention(part, lse, dist.group.WORLD)
     return {"rank": rank, "err": float((got - want).abs().max())}
+
+
+def dryrun_live_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of tests/test_torch_dryrun.py's live run: each of
+    ``job['shapes']`` (name -> ``ShapeConfig`` fields) built as the dry run
+    builds it (``launch/dryrun.build_cell``) but on real CPU tensors and a
+    real mesh, and run once; the collective counters it moved, by kind, and
+    the arguments' bytes by part."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = get_reduced(job["arch"], **job["overrides"])
+    *dps, tp = job["mesh"]
+    par = sh.Parallel.of(make_local_mesh(tp, "cpu", pods=dps[0] if len(dps) == 2 else 1),
+                         cfg)
+    out = {}
+    for name, fields in job["shapes"].items():
+        fn, args, _, parts = build_cell(cfg, ShapeConfig(*fields), par, device="cpu")
+        before = sh.collective_counts()
+        fn(*args)
+        after = sh.collective_counts()
+        out[name] = {"calls": {k: after[k]["calls"] - before[k]["calls"] for k in after},
+                     "bytes": {k: after[k]["bytes"] - before[k]["bytes"] for k in after},
+                     "parts": parts}
+    return out

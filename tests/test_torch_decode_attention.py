@@ -30,6 +30,29 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
+@pytest.fixture(autouse=True)
+def _pinned_numerics():
+    """Each test holds fp32 results to 2e-5, so it pins the process-wide
+    precision state those depend on, which another test file sharing the
+    xdist worker may have changed, and restores it after: full-precision
+    fp32 products in torch and JAX, no x64 in JAX. (Reduced-precision torch
+    products move these rows 50x past the bar; the plain version's result is
+    bit for bit the same at any torch thread count, so threads stay as the
+    worker has them.)"""
+    import jax
+    saved = (torch.get_float32_matmul_precision(),
+             jax.config.jax_default_matmul_precision, jax.config.jax_enable_x64)
+    torch.set_float32_matmul_precision("highest")
+    jax.config.update("jax_default_matmul_precision", None)
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        jax.config.update("jax_default_matmul_precision", saved[1])
+        jax.config.update("jax_enable_x64", saved[2])
+
+
 def _qkv(B, H, Hkv, S, d, dtype, seed=7):
     rng = np.random.default_rng(seed)
     return [jnp.asarray(rng.standard_normal(shape), jnp.float32).astype(JNP[dtype])

@@ -7,15 +7,19 @@ meta tensors on the port's) and tp in {1, 2, 4, 8, 16}.
 
 Execution: the four archs of tests/test_sharded_exec.py at its reduced
 shapes on 8 gloo CPU ranks as a 2 x 4 ("data", "model") mesh (and moonshot
-on 1 x 8, where its experts split by hidden width), parameters from
-the reference's init: one train step against the reference's single-device
+on 1 x 8, where its experts split by hidden width), recurrentgemma,
+whisper and internvl2 on 2 x 4 and on 1 x 8 (where their 4 heads do not
+divide the model axis), whisper on 2 x 2 (kv heads split: the cross keys
+gathered for the state), and qwen3 on the 2 x 2 x 2 ("pod", "data",
+"model") mesh, parameters (and stub frames or patches) from the reference's
+init: one train step against the reference's single-device
 step (loss within 1e-5, each gradient within 1e-4 of its tensor's largest
 |entry|, the port's bars against JAX; parameters after the step within 1e-3,
 the reference's sharded bar), every replicated leaf's gradient equal on all
 ranks, and serve steps against the reference's (tokens equal, logits within
-1e-3 of max |logit|). With 2 kv heads over 4 model ranks the decode caches'
-positions are split over ``model``; qwen3 at batch 1 on a 2 x 2 mesh splits
-them over ``data``.
+1e-3 of max |logit|). With 2 kv heads over 4 or 8 model ranks the decode
+caches' positions are split over ``model``; qwen3 at batch 1 on a 2 x 2 mesh
+splits them over ``data``.
 """
 
 import jax
@@ -26,6 +30,7 @@ import torch
 
 from repro.configs import ARCH_IDS, get_config as jax_config, get_reduced as jax_reduced
 from repro.data import DataConfig, SyntheticTokenPipeline
+from repro.models import api as japi
 from repro.models import sharding as jsh
 from repro.models.api import loss_fn as jax_loss_fn
 from repro.models.api import make_train_step as jax_train_step
@@ -37,7 +42,7 @@ from repro.optim import adamw_init as jax_adamw_init
 from repro_torch.configs import get_config
 from repro_torch.core.tree import flatten_with_keys
 from repro_torch.models import sharding as tsh
-from tests._torch_parity import combine_rank, run_ranks, sharded_exec_rank
+from tests._torch_parity import combine_rank, frontend, run_ranks, sharded_exec_rank
 
 TPS = (1, 2, 4, 8, 16)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}
@@ -136,10 +141,13 @@ def _flat(tree):
             for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _reference_decode(params, jcfg, prompt, steps):
-    """The reference's logits: the prefill's last position, then each
-    teacher-forced decode step's."""
+def _reference_decode(params, jcfg, prompt, steps, front=None):
+    """The reference's logits: the prefill's last position (after the stub
+    frontend's embeddings ``front``, if any), then each teacher-forced decode
+    step's."""
+    fe = japi.frontend_embeds_from_batch(front or {}, jcfg)
     logits, _, state = jax_forward(params, jnp.asarray(prompt), jcfg, make_state=True,
+                                   frontend_embeds=None if fe is None else jnp.asarray(fe),
                                    state_len=STATE_LEN)
     out = [np.asarray(logits[:, -1, :jcfg.vocab_size])]
     for i in range(steps.shape[1]):
@@ -167,7 +175,17 @@ def _check_decode(got, want, what):
     ("moonshot_v1_16b_a3b", (2, 4)),
     # 4 experts and 4 heads do not split over 8 ranks: each rank holds 1/8 of
     # every expert's hidden width, and attention is replicated
-    ("moonshot_v1_16b_a3b", (1, 8))])
+    ("moonshot_v1_16b_a3b", (1, 8)),
+    # the RG-LRU's 32 channels split 8 a rank, its gates over the gathered width;
+    # whisper's encoder and cross attention split their heads (the cross state
+    # stays whole); internvl2's patches replicated over model
+    ("recurrentgemma_2b", (2, 4)), ("whisper_small", (2, 4)), ("internvl2_1b", (2, 4)),
+    # 2 kv heads split over model 2: whisper's cross keys gathered for the state
+    ("whisper_small", (2, 2)),
+    # 4 heads do not divide 8: attention replicated, the LRU at 4 channels a rank
+    ("recurrentgemma_2b", (1, 8)), ("whisper_small", (1, 8)), ("internvl2_1b", (1, 8)),
+    # the multi-pod mesh: data parallelism over pod x data
+    ("qwen3_1_7b", (2, 2, 2))])
 def test_sharded_train_and_serve_match_the_reference(arch, mesh):
     jcfg = jax_reduced(arch, **OVERRIDES)
     params = jax_init(jax.random.PRNGKey(0), jcfg, jnp.float32)
@@ -181,14 +199,16 @@ def test_sharded_train_and_serve_match_the_reference(arch, mesh):
     rng = np.random.default_rng(5)
     toks = rng.integers(0, jcfg.vocab_size, (4, PROMPT + STEPS)).astype(np.int32)
     prompt, steps = toks[:, :PROMPT], toks[:, PROMPT:]
-    want_decode = _reference_decode(params, jcfg, prompt, steps)
+    front = frontend(jcfg, 4, rng)
+    want_decode = _reference_decode(params, jcfg, prompt, steps, front)
     want_empty = _reference_empty(params, jcfg, 4)
 
     job = {"arch": arch, "overrides": OVERRIDES, "mesh": mesh, "params": _flat(params),
            "train": batch,
-           "decode": {"prompt": prompt, "steps": steps, "state_len": STATE_LEN},
+           "decode": {"prompt": prompt, "steps": steps, "state_len": STATE_LEN,
+                      "front": front},
            "empty": {"batch": 4, "state_len": STATE_LEN}}
-    res = run_ranks(sharded_exec_rank, 8, job)
+    res = run_ranks(sharded_exec_rank, int(np.prod(mesh)), job)
     r0 = res[0]
     assert abs(r0["loss"] - float(jloss)) <= LOSS_TOL, (r0["loss"], float(jloss))
     assert abs(r0["step_loss"] - float(m1["loss"])) <= LOSS_TOL
@@ -203,7 +223,8 @@ def test_sharded_train_and_serve_match_the_reference(arch, mesh):
         assert sorted(r["replicated_grads"]) == sorted(r0["replicated_grads"])
         for key, gr in r["replicated_grads"].items():
             np.testing.assert_array_equal(gr, r0["replicated_grads"][key], err_msg=key)
-    assert r0["seq_axes"] == ("model",)      # 2 kv heads do not divide 4 model ranks
+    # 2 kv heads split over model 2; over 4 or 8 ranks the cache's positions do
+    assert r0["seq_axes"] == (None if jcfg.n_kv_heads % mesh[-1] == 0 else ("model",))
     _check_decode(r0["decode"], want_decode, arch)
     np.testing.assert_array_equal(r0["empty"], want_empty)
 
