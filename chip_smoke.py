@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's HotSwap cold-start, serving and training paths on the
-card, for the dense, recurrent, MoE, encoder-decoder and VLM families, and
-checks them:
+Drives the port's HotSwap cold-start, serving, training and simulation
+paths on the card, for the dense, recurrent, MoE, encoder-decoder and VLM
+families, and checks them:
 
 1. environment: card name and power limit, torch and CUDA versions;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a),
@@ -116,10 +116,24 @@ checks them:
    prefill 512 + 8 decode steps within 1e-3, the recurrence route per rank;
    (e) moonshot-v1-16b-a3b at 2 of 48 layers on 1 x 4 (16 experts a rank),
    one forward within 1e-3 where its routing agrees. Each rank's peak
-   memory and seconds are printed; a failing rank fails the phase.
+   memory and seconds are printed; a failing rank fails the phase;
+19. the simulation track: (a) fleet_scan against its plain version (run on
+   the host, where it serves), bitwise on all six outputs, over groups of
+   1, 2, 63, 64, 65, 128 and 10^4 / 10^5 arrivals under a tight and a loose
+   keep-alive, and no DFMA in its SASS; (b) azure_scale_xl (10.5 M
+   invocations, 2,000 Zipf functions, 4 workers, affinity) with every group
+   capped at one instance, through ``scenario.run`` with
+   ``engine="fleet_vec"``: the scan on the card against the numpy solver,
+   equal sha256 of the sample buffers and equal counters, for warmswap and
+   prebaking, with both runs' wall seconds and the kernel's device time;
+   (c) page_headline (smoke) through ``fleet`` and ``fleet_vec`` (scan on
+   the card): equal, and the dependency-loading speedup in 2.2-3.2;
+   sharing_fig7's memory saving; (d) the paper's page model's predicted
+   cold start (tier local) beside qwen1.5-0.5b's measured warmswap and
+   baseline starts.
 
 Each phase prints its seconds. The launch counters are set to 0 just before
-each driven path (phases 4, 5, 7-14, 16) and read just after; a kernel the
+each driven path (phases 4, 5, 7-14, 16, 19b-d) and read just after; a kernel the
 path did not launch fails the run; falcon-mamba's path must run diag_recurrence on its sequential route and
 recurrentgemma's on its chunked route. Each phase frees its models before
 the next. Any failed check exits non-zero. The last line is the JSON device
@@ -127,8 +141,11 @@ record.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import hashlib
+import importlib
 import json
 import math
 import os
@@ -239,6 +256,22 @@ TRAIN_LR = 3e-3            # peak rate: 3e-5 .. 3e-4 over the 10 warm-up steps
 ROLLBACK_SHAPE, ROLLBACK_STEPS = (2, 256), 8
 ROLLBACK_TOL = 1e-6        # tests/test_serving_ft.py:107
 GRIFFIN_TRAIN, GRIFFIN_STEPS = (1, 2560), 3       # recurrentgemma-2b training: B, S
+SCENARIOS = os.path.join(ROOT, "benchmarks", "scenarios")
+#: 19a: keep-alive (min) -> group lengths; around the reference's pad buckets
+#: (powers of two from 64), and one long group
+SCAN_CHECK = {"tight": (0.02, (1, 2, 63, 64, 65, 128, 10_000)),
+              "loose": (15.0, (1, 2, 63, 64, 65, 128, 100_000))}
+SCAN_SERVICE = (2.0, 1.39)  # warm_s, cold_s: a warm service longer than the mean gap
+SCAN_OUTPUTS = ("sample", "wait", "start", "exp2", "cold", "queued")
+SIM_SAMPLES = ("latency_samples_s", "queue_wait_s", "sample_fn")
+SIM_COUNTERS = ("n_invocations", "n_cold", "n_warm", "n_queued", "n_workers",
+                "pool_misses", "evictions", "max_concurrent_instances",
+                "placement_warm_hits", "placement_pool_hits", "memory_bytes",
+                "cache_local_hits", "cache_remote_hits", "cache_misses",
+                "shared_cache_peak_bytes", "shared_cache_evictions", "pages_transferred",
+                "prewarm_spawns", "prewarm_hits", "prewarm_dropped", "total_latency_s",
+                "queue_delay_s", "instance_resident_min", "horizon_min",
+                "per_fn_latency", "per_fn_invocations", "per_worker")
 
 
 class SmokeFailure(RuntimeError):
@@ -261,17 +294,19 @@ def log(msg: str) -> None:
 
 def kernel_fns() -> dict:
     from repro_torch.kernels import (decode_attention, diag_recurrence,
-                                     flash_attention, page_gather)
+                                     flash_attention, fleet_scan, page_gather)
     from repro_torch.kernels.flash_attention.ops import flash_attention_backward
     return {"page_gather": page_gather, "flash_attention": flash_attention,
             "flash_attention_backward": flash_attention_backward,
-            "decode_attention": decode_attention, "diag_recurrence": diag_recurrence}
+            "decode_attention": decode_attention, "diag_recurrence": diag_recurrence,
+            "fleet_scan": fleet_scan}
 
 
 #: the CUDA source each kernel wrapper's library is built from
 SOURCES = {"page_gather": "page_gather", "flash_attention": "flash_attention",
            "flash_attention_backward": "flash_attention",
-           "decode_attention": "decode_attention", "diag_recurrence": "diag_recurrence"}
+           "decode_attention": "decode_attention", "diag_recurrence": "diag_recurrence",
+           "fleet_scan": "fleet_scan"}
 
 
 def reset_counts(kernels) -> None:
@@ -362,6 +397,17 @@ def _disassembler():
     found = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
                          "cuobjdump")
     return found if os.path.exists(found) else None
+
+
+def sass_count(lib, opcode: str) -> int:
+    """Instructions of ``opcode`` (e.g. ``DFMA``) in a built library's SASS."""
+    tool = _disassembler()
+    expect(tool is not None, "no disassembler (cuobjdump) to read the SASS with")
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+                          timeout=300).stdout
+    expect("Function :" in sass, f"{tool} printed no SASS for {lib._name}")
+    return sum(1 for line in sass.splitlines() if f" {opcode}" in line
+               and line.split(opcode)[1][:1] in (" ", "."))
 
 
 def phase_build() -> None:
@@ -831,11 +877,13 @@ def phase_qwen(cfg, manager, img, original, device) -> dict:
 
 
 def phase_coldstart(cfg, manager, tmp: str, tag: str, name: str,
-                    baseline_rounds: int = 3) -> dict:
+                    baseline_rounds: int = 3, page_model=None) -> dict:
     """Cold starts of one tenant on ``cfg``'s live image through the
     orchestrator: warmswap under BULK and NO_PAGESERVER, median of 3, and
     baseline (the tenant's checkpoint read from disk) ``baseline_rounds``
-    times. Every start's classes must agree."""
+    times. Every start's classes must agree. With ``page_model`` the output
+    also holds ``predicted``: the model's cold latency for warmswap and
+    baseline at tier ``local``, priced on the live image's size."""
     import numpy as np
     from repro_torch.core import (ColdStartConfig, ColdStartOrchestrator,
                                   FunctionRegistry, RestorePolicy)
@@ -872,6 +920,8 @@ def phase_coldstart(cfg, manager, tmp: str, tag: str, name: str,
         log(f"[{tag}] {name}: baseline checkpoint of {os.path.getsize(ckpt)} B written "
             f"in {time.perf_counter() - t0:.2f} s ({free} B were free)")
     orch = ColdStartOrchestrator(manager, registry, ColdStartConfig())
+    predicted = ({m: orch.predicted_cold_latency_s(fn_id, page_model, m, tier="local")
+                  for m in ("warmswap", "baseline")} if page_model is not None else None)
     req = request()
     totals = {"baseline": [], "warmswap/bulk": [], "warmswap/no_pageserver": []}
     classes = []
@@ -896,6 +946,8 @@ def phase_coldstart(cfg, manager, tmp: str, tag: str, name: str,
     out = {k: statistics.median(v) for k, v in totals.items() if v}
     log(f"[{tag}] {name} cold start totals, median of 3 (baseline: of "
         f"{baseline_rounds}) (s): {json.dumps(out)}; all runs {json.dumps(totals)}")
+    if predicted is not None:
+        out["predicted"] = predicted
     return out
 
 
@@ -2507,6 +2559,266 @@ def check_sharded(ranks: list, tag: str = "18") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------------
+# 19. the simulation track: fleet_vec's cap=1 scan on the card
+# ---------------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def scan_switch(on: bool):
+    """``REPRO_FLEET_VEC_SCAN`` set to 1 (the scan on the card) or 0 (the
+    numpy solver) inside the block."""
+    old = os.environ.get("REPRO_FLEET_VEC_SCAN")
+    os.environ["REPRO_FLEET_VEC_SCAN"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_FLEET_VEC_SCAN"]
+        else:
+            os.environ["REPRO_FLEET_VEC_SCAN"] = old
+
+
+@contextlib.contextmanager
+def spying(module, name: str, record: list):
+    """``module.name`` wrapped inside the block: each call appends
+    ``(args, host seconds)`` to ``record``."""
+    real = getattr(module, name)
+
+    def spy(*args):
+        t0 = time.perf_counter()
+        out = real(*args)
+        record.append((args, time.perf_counter() - t0))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def same_fleet(a, b, what: str) -> None:
+    """Two fleet results bit for bit: sha256 of the sample buffers, == on
+    every counter and float sum."""
+    import numpy as np
+    for f in SIM_SAMPLES:
+        x, y = getattr(a, f), getattr(b, f)
+        expect(x.dtype == y.dtype and x.shape == y.shape
+               and hashlib.sha256(np.ascontiguousarray(x).tobytes()).digest()
+               == hashlib.sha256(np.ascontiguousarray(y).tobytes()).digest(),
+               f"{what}: {f} differs")
+    for f in SIM_COUNTERS:
+        expect(getattr(a, f) == getattr(b, f), f"{what}: {f} differs: "
+               f"{getattr(a, f)!r} != {getattr(b, f)!r}")
+
+
+def clock_max_hz() -> float:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_group(rng, n: int):
+    """``n`` arrival times (min): bursts of gaps well under a warm service
+    (queues form), and one gap in ten long enough to outlive a keep-alive."""
+    import numpy as np
+    gaps = np.where(rng.random(n) < 0.1, rng.exponential(20.0, n), rng.exponential(0.03, n))
+    return np.cumsum(gaps)
+
+
+def check_fleet_scan(device, errs: dict) -> dict:
+    """19a: fleet_scan against its plain version (run on the host, where it
+    serves), bitwise on all six outputs, and the SASS free of DFMA."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fleet_scan import fleet_scan, fleet_scan_plain
+    from repro_torch.kernels.sweep import bound_ms, cuda_ms, fleet_scan_work
+
+    rng = np.random.default_rng(19)
+    warm_s, cold_s = SCAN_SERVICE
+    out = {}
+    for label, (ka, lengths) in SCAN_CHECK.items():
+        t = torch.from_numpy(np.concatenate([scan_group(rng, n) for n in lengths]))
+        offsets = torch.from_numpy(np.r_[0, np.cumsum(lengths)].astype(np.int64))
+        args = (warm_s, cold_s, warm_s / 60.0, cold_s / 60.0, ka)
+        t_d, off_d = t.to(device), offsets.to(device)
+        got = [o.cpu() for o in fleet_scan(t_d, off_d, *args)]
+        t0 = time.perf_counter()
+        want = fleet_scan_plain(t, offsets, *args)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for name, g, w in zip(SCAN_OUTPUTS, got, want):
+            expect(g.dtype == w.dtype and torch.equal(g, w),
+                   f"fleet_scan ({label} keep-alive): {name} differs from the plain "
+                   f"version")
+        n_cold, n_queued = int(want[4].sum()), int(want[5].sum())
+        n_warm = int(offsets[-1]) - n_cold - n_queued
+        expect(n_queued > 0 and n_warm > 0 and n_cold > len(lengths),
+               f"fleet_scan ({label}): {n_cold} cold starts, {n_queued} queued and "
+               f"{n_warm} warm arrivals leave a branch untested")
+        moved, ops, longest = fleet_scan_work(offsets)
+        bound, by = bound_ms(moved, ops, torch.float64)
+        ms = cuda_ms(lambda: fleet_scan(t_d, off_d, *args), iters=5, per=2, warmup=1)
+        log(f"[19a] fleet_scan, keep-alive {ka} min, groups {list(lengths)}: bitwise "
+            f"equal to the plain version on all six outputs ({n_cold} cold, {n_queued} "
+            f"queued, {n_warm} warm); kernel {ms:.4f} ms, plain (host CPU) "
+            f"{plain_ms:.1f} ms, bound {bound:.5f} ms ({by})")
+        out[label] = {"lengths": list(lengths), "keep_alive_min": ka, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                      "longest": longest}
+    errs["fleet_scan"] = 0.0
+    dfma = sass_count(build.library("fleet_scan"), "DFMA")
+    dadd = sass_count(build.library("fleet_scan"), "DADD")
+    log(f"[19a] fleet_scan SASS: {dfma} DFMA, {dadd} DADD instructions")
+    expect(dfma == 0, f"fleet_scan's SASS holds {dfma} DFMA: a fused multiply-add "
+                      f"rounds once where the reference rounds twice")
+    out["dfma"] = dfma
+    return out
+
+
+def phase_fleet_scale(device, tag: str = "19b") -> dict:
+    """19b: azure_scale_xl (2,000 Zipf functions over 32 images, two weeks, 4
+    workers, affinity) with every group capped at one instance, through
+    ``scenario.run`` with ``engine="fleet_vec"``: the scan on the card against
+    the numpy solver, bit for bit, for warmswap and prebaking."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fleet_vec as fv
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.core.scenario import RunOverrides, Scenario, run
+    from repro_torch.core.simulator import COST_MODELS
+    from repro_torch.core.traces import TRACE_GENERATORS
+    from repro_torch.kernels.sweep import bound_ms, cuda_ms, fleet_scan_work
+
+    # the subpackage, whose attribute fleet_vec looks the wrapper up in at each call
+    fs = importlib.import_module("repro_torch.kernels.fleet_scan")
+    scn = Scenario.from_file(os.path.join(SCENARIOS, "azure_scale_xl.json")) \
+        .with_overrides({"max_instances_per_fn": 1})
+    t0 = time.perf_counter()
+    traces = TRACE_GENERATORS.build(scn.traces.name, **scn.traces.kwargs)
+    gen_s = time.perf_counter() - t0
+    n_inv = sum(len(t.arrivals_min) for t in traces)
+    cost = COST_MODELS.build(scn.cost.name, **scn.cost.kwargs)
+    fleet = FleetConfig(n_workers=scn.n_workers, placement=scn.placement.name,
+                        max_instances_per_fn=1, keep_alive_min=scn.keep_alive_min)
+    for m in scn.methods:
+        reason = fv.fast_path_reason(traces, m, cost, fleet)
+        expect(reason is None, f"azure_scale_xl/{m} at cap 1 leaves the fast path: "
+                               f"{reason}")
+    ov = RunOverrides(traces=traces)
+    kernel_calls, solver_calls = [], []
+    reset_counts([fs.fleet_scan])
+    with scan_switch(True), spying(fs, "fleet_scan", kernel_calls):
+        t0 = time.perf_counter()
+        on_card = run(scn, overrides=ov)
+        scan_s = time.perf_counter() - t0
+    counts = {"fleet_scan": fs.fleet_scan.launches}
+    groups = fv.SCAN_STATS["groups"]
+    expect(counts["fleet_scan"] == len(scn.methods),
+           f"the scan run launched fleet_scan {counts['fleet_scan']} times, not once "
+           f"per method")
+    with scan_switch(False), spying(fv, "_solve_group", solver_calls):
+        t0 = time.perf_counter()
+        on_host = run(scn, overrides=ov)
+        numpy_s = time.perf_counter() - t0
+    expect(fv.SCAN_STATS["groups"] == 0, "the numpy run went through the scan")
+    for m in scn.methods:
+        same_fleet(on_card.raw[m], on_host.raw[m], f"azure_scale_xl/{m}: scan vs numpy")
+    expect(on_card.to_dict() == on_host.to_dict(), "azure_scale_xl results differ")
+    args = kernel_calls[0][0]               # warmswap's batch, as the path gave it
+    offsets = args[1].cpu().numpy()
+    moved, ops, longest = fleet_scan_work(offsets)
+    ms = cuda_ms(lambda: fs.fleet_scan(*args), iters=3, per=1, warmup=1)
+    bound, by = bound_ms(moved, ops, torch.float64)
+    chain_ms = 2 * longest / clock_max_hz() * 1e3
+    solver_ms = sum(dt for _, dt in solver_calls[:groups]) * 1e3
+    n_groups = len(offsets) - 1
+    worst = max(float(np.abs(on_card.raw[m].latency_samples_s
+                             - on_host.raw[m].latency_samples_s).max())
+                for m in scn.methods)
+    sha = {m: hashlib.sha256(on_card.raw[m].latency_samples_s.tobytes()).hexdigest()[:16]
+           for m in scn.methods}
+    log(f"[{tag}] azure_scale_xl at cap 1: {n_inv} invocations of {len(traces)} "
+        f"functions (generated in {gen_s:.1f} s), {n_groups} groups, the longest "
+        f"{longest} arrivals; scan on the card == numpy solver for "
+        f"{', '.join(scn.methods)} (latency sha256 {sha}, every counter ==)")
+    log(f"[{tag}] wall: scan run {scan_s:.2f} s, numpy run {numpy_s:.2f} s "
+        f"({len(scn.methods)} methods each); fleet_scan {ms:.3f} ms on the card "
+        f"({n_inv / (ms * 1e-3):.3e} arrivals/s; bound {bound:.4f} ms ({by}), serial "
+        f"chain floor {chain_ms:.3f} ms), numpy solver {solver_ms:.1f} ms on the host "
+        f"over the same groups; launches {counts}")
+    return {"counts": counts, "row": {
+        "shape": f"azure_scale_xl cap=1 warmswap batch: {n_groups} groups, {int(offsets[-1])} "
+                 f"arrivals, longest {longest} (plain_ms: the numpy solver, "
+                 f"fleet_vec._solve_group, on the host over the same groups; "
+                 f"max_abs_err: scan vs numpy solver samples)",
+        "max_abs_err": worst, "ms": ms, "plain_ms": solver_ms, "bound_ms": bound,
+        "bound_by": by, "chain_floor_ms": chain_ms},
+        "summary": {"invocations": n_inv, "groups": n_groups, "longest": longest,
+                    "scan_run_s": scan_s, "numpy_run_s": numpy_s, "trace_s": gen_s,
+                    "kernel_ms": ms, "bound_ms": bound, "chain_floor_ms": chain_ms,
+                    "numpy_solver_ms": solver_ms,
+                    "arrivals_per_s": n_inv / (ms * 1e-3)}}
+
+
+def phase_fleet_band(device, tag: str = "19c") -> dict:
+    """19c: page_headline at smoke scale through ``fleet`` and through
+    ``fleet_vec`` with the scan on the card (equal, and the paper's 2.2-3.2x
+    dependency-loading band), and sharing_fig7's memory saving."""
+    from repro_torch.core.fleet_vec import SCAN_STATS
+    from repro_torch.core.scenario import Scenario, run
+    from repro_torch.kernels import fleet_scan
+
+    scn = Scenario.from_file(os.path.join(SCENARIOS, "page_headline.json")).smoke_scaled()
+    event = run(scn.with_overrides({"engine": "fleet"}))
+    reset_counts([fleet_scan])
+    with scan_switch(True):
+        vec = run(scn.with_overrides({"engine": "fleet_vec"}))
+    counts = {"fleet_scan": fleet_scan.launches}
+    expect(counts["fleet_scan"] > 0 and SCAN_STATS["groups"] > 0,
+           "page_headline's fleet_vec run did not launch fleet_scan")
+    for m in scn.methods:
+        same_fleet(event.raw[m], vec.raw[m], f"page_headline/{m}: fleet vs fleet_vec")
+    expect(event.summary == vec.summary, "page_headline summaries differ")
+    speedup = vec.summary["dependency_loading_speedup"]
+    expect(2.2 <= speedup <= 3.2, f"dependency_loading_speedup {speedup} outside 2.2-3.2")
+    fig7 = run(Scenario.from_file(os.path.join(SCENARIOS, "sharing_fig7.json")))
+    saving = fig7.summary["memory_saving_vs_prebaking"]
+    log(f"[{tag}] page_headline (smoke): fleet == fleet_vec (scan on the card, "
+        f"launches {counts}); dependency_loading_speedup {speedup!r}; sharing_fig7 "
+        f"memory_saving_fraction {saving!r}")
+    return {"counts": counts, "dependency_loading_speedup": speedup,
+            "memory_saving_fraction": saving}
+
+
+def phase_predicted(cfg, manager, tmp: str, tag: str = "19d") -> dict:
+    """19d: the paper's page model (``PageCostModel``, tier ``local``) beside
+    the measured cold-start totals of qwen1.5-0.5b on the card."""
+    from repro_torch.core import COST_MODELS, PAGE_COST_MODELS
+    from repro_torch.kernels import page_gather
+
+    page = PAGE_COST_MODELS.build("default", cost=COST_MODELS.build("paper_table2"))
+    reset_counts([page_gather])
+    got = phase_coldstart(cfg, manager, tmp, tag, "qwen-19d", baseline_rounds=1,
+                          page_model=page)
+    counts = {"page_gather": page_gather.launches}
+    expect(counts["page_gather"] > 0, "the warmswap restores launched no page_gather")
+    pred = got.pop("predicted")
+    table = {"warmswap": {"predicted_s": pred["warmswap"],
+                          "measured_s": got["warmswap/bulk"]},
+             "warmswap/no_pageserver": {"predicted_s": pred["warmswap"],
+                                        "measured_s": got["warmswap/no_pageserver"]},
+             "baseline": {"predicted_s": pred["baseline"],
+                          "measured_s": got.get("baseline")}}
+    for row in table.values():
+        if row["measured_s"]:
+            row["measured_over_predicted"] = row["measured_s"] / row["predicted_s"]
+    log(f"[{tag}] predicted (paper page model, local tier, image "
+        f"{manager.live_image_bytes(cfg.name)} B) against measured cold starts (s): "
+        f"{json.dumps(table)}; launches {counts}")
+    return {"counts": counts, "table": table}
+
+
 def _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, label: str):
     """Times flash_attention at one shape beside its plain version and SDPA
     (given the explicit mask where a window cuts keys), with the bound from
@@ -2852,6 +3164,16 @@ def main() -> int:
         sharded = timed("18", phase_sharded, device, tmp)
         path_counts["sharded"] = sharded.pop("counts")
         peaks.append(free_device("18"))
+        t19 = time.perf_counter()
+        scan_check = timed("19a", check_fleet_scan, device, errs)
+        scale = timed("19b", phase_fleet_scale, device)
+        path_counts["azure_scale_xl"] = scale.pop("counts")
+        band = timed("19c", phase_fleet_band, device)
+        path_counts["page_headline"] = band.pop("counts")
+        predicted = timed("19d", phase_predicted, cfg, qmanager, tmp)
+        path_counts["predicted"] = predicted.pop("counts")
+        log(f"[19] phase {time.perf_counter() - t19:.1f} s")
+        peaks.append(free_device("19"))
     launches = {k: sum(c.get(k, 0) for c in path_counts.values()) for k in kernel_fns()}
     log(f"[6] launches on the main paths: {launches}")
     path_counts["whisper-cross"] = path_counts["whisper"]
@@ -2877,6 +3199,18 @@ def main() -> int:
                   "internvl2": internvl.pop("decode_inputs"),
                   "whisper-cross": whisper.pop("decode_inputs"),
                   "h2o": h2o.pop("decode_inputs")})
+    scan = {"name": "fleet_scan", "route": "cuda", "source": "src/repro_torch/csrc/fleet_scan.cu",
+            "replaces": "src/repro/core/fleet_vec.py:208", "launches": launches["fleet_scan"],
+            "library_ms": None}
+    check = scan_check["loose"]
+    rows.append({**scan, "shape": f"19a check batch: groups of {check['lengths']}, "
+                                  f"keep-alive {check['keep_alive_min']} min (no TPU kernel: "
+                                  f"the reference runs jax.lax.scan under XLA; plain_ms: the "
+                                  f"plain version on the host CPU, where it serves)",
+                 "max_abs_err": errs["fleet_scan"], "ms": check["ms"],
+                 "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
+                 "bound_by": check["bound_by"]})
+    rows.append({**scan, **scale.pop("row")})
     log(f"[6] qwen1.5-0.5b cold start, median of 3 (s): {json.dumps(qwen_cold)}")
     log(f"[7] serving summary: {json.dumps(serving)}")
     log(f"[8] falcon-mamba-7b summary: {json.dumps(falcon)}")
@@ -2891,6 +3225,7 @@ def main() -> int:
     log(f"[16] recurrentgemma-2b training summary: {json.dumps(griffin_train)}")
     log(f"[17] export summary: {json.dumps(aot)}")
     log(f"[18] sharded summary: {json.dumps(sharded)}")
+    log(f"[19] simulation summary: {json.dumps({'scan_check': scan_check, **scale, **band, **predicted})}")
     log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory {max(peaks) / 1e9:.2f} GB")
     print(card, flush=True)

@@ -105,6 +105,39 @@ class ColdStartOrchestrator:
         self._prebaked: Dict[str, Dict[str, Any]] = {}
 
     # ------------------------------------------------------------------ helpers
+    def predicted_cold_latency_s(self, fn_id: str, model,
+                                 method: str = "warmswap",
+                                 tier: str = "local",
+                                 resident_pages: int = 0) -> float:
+        """Price a cold start of ``fn_id`` with the page-granular model
+        (``core/costmodel.PageCostModel``) using the *real* registered
+        image's size, so simulated-vs-measured comparisons share one payload.
+
+        Args:
+            fn_id: registered function id.
+            model: a :class:`~repro_torch.core.costmodel.PageCostModel`.
+            method: ``'warmswap' | 'prebaking' | 'baseline'``.
+            tier: where the pages would come from (``'local' | 'remote' |
+                'miss'`` — see the cost-model docstring).
+            resident_pages: pages already present container-side.
+
+        Returns:
+            Predicted cold-start latency in seconds. Compare against the
+            measured ``PhaseTimes.total`` of the same start path to judge the
+            model's calibration on this machine.
+
+        A prediction never materializes state: the real image size is used
+        when the image is already live in the pool, otherwise the model's
+        configured default — building or reviving the image here would pay
+        (and pool-admit) the very cost being estimated.
+        """
+        spec = self.registry.get(fn_id)
+        # None -> the model's configured default (cost.image_bytes)
+        image_bytes = self.manager.live_image_bytes(spec.image_id)
+        return model.cold_latency_s(method, tier=tier,
+                                    resident_pages=resident_pages,
+                                    image_bytes=image_bytes)
+
     def _boot(self) -> float:
         """Runtime boot: device ready + dispatch path warm."""
         t0 = time.perf_counter()

@@ -1,14 +1,14 @@
 """The provider-side Dependency Manager: a refcounted pool of live images.
 
 Port of ``repro.core.pool`` (``PoolStats``, ``CapacityLedger``,
-``DependencyManager``). The manager builds and owns live dependency images,
-serves migration requests (metadata + page server), dumps cold images to a
-**disk tier** and revives them without re-running initialization, enforces a
-pool capacity with LRU eviction, and accounts memory: pool cost is O(#images),
-not O(#functions). Its page stores live on one device (``cuda`` unless the
+``ClusterImageCache``, ``DependencyManager``). The manager builds and owns
+live dependency images, serves migration requests (metadata + page server),
+dumps cold images to a **disk tier** and revives them without re-running
+initialization, enforces a pool capacity with LRU eviction, and accounts
+memory: pool cost is O(#images), not O(#functions). Its page stores live on one device (``cuda`` unless the
 caller passes ``device="cpu"``), the buffer every tenant's restore gathers
-from. The cluster-wide ``ClusterImageCache`` belongs to the simulation track
-and is not ported yet.
+from. ``ClusterImageCache`` is the fleet simulators' cluster-wide shared
+image tier over a ``CapacityLedger``: pure bookkeeping, copied unchanged.
 """
 from __future__ import annotations
 
@@ -145,6 +145,132 @@ class CapacityLedger:
         if key in self.entries:
             self._used_bytes += nbytes - self.entries[key].nbytes
             self.entries[key].nbytes = nbytes
+
+
+class ClusterImageCache:
+    """Cluster-wide shared image tier over :class:`CapacityLedger`.
+
+    The fleet's workers each run a private pool, but the *cluster* holds each
+    distinct pre-warmed image at most once per fetch from the source store:
+    the first worker to need an image pays the source fetch, every later
+    worker pulls the pages from a peer over the network (remote hit), and a
+    worker whose own pool already holds it pays host-memcpy only (local hit).
+    This class is the index that makes that sharing decidable: one
+    capacity-bounded ledger of *distinct* images plus, per image, the set of
+    workers currently holding it.
+
+    Units: ``nbytes`` in bytes, ``now`` in simulation minutes (any monotone
+    clock works — it only orders LRU decisions).
+
+    Args:
+        capacity_bytes: total bytes of distinct images the shared tier may
+            hold cluster-wide; ``None`` = unbounded. Exceeding it evicts the
+            least-recently-used image *everywhere* (``on_evict`` is called so
+            the owner can drop per-worker residents too). An image larger
+            than the whole capacity is **rejected** — it can never fit the
+            shared tier, so every non-local access to it is a source miss.
+        on_evict: callback ``(key) -> None`` fired for each cluster-wide
+            eviction, before the holder set is cleared.
+    """
+
+    def __init__(self, capacity_bytes: Optional[int] = None,
+                 on_evict: Optional[Callable[[str], None]] = None):
+        self.ledger = CapacityLedger(capacity_bytes)
+        self.holders: Dict[str, set] = {}
+        self.on_evict = on_evict
+        self.local_hits = 0
+        self.remote_hits = 0
+        self.misses = 0
+        self.rejected = 0           # admits refused because nbytes > capacity
+        self.peak_bytes = 0         # high-water mark of distinct-image bytes
+
+    def classify(self, key: str, worker) -> str:
+        """Pure read: ``'local'`` (``worker`` holds ``key``), ``'remote'``
+        (some other worker does), or ``'miss'`` (nobody — the pages must
+        come from the source store). No counters move."""
+        held_by = self.holders.get(key)
+        if held_by and worker in held_by:
+            return "local"
+        return "remote" if held_by else "miss"
+
+    def count(self, tier: str) -> None:
+        """Record one access at ``tier`` in the hit/miss counters. Split
+        from :meth:`classify` so a caller that refines the classification
+        (the fleet engine treats worker-pool residency as 'local' even when
+        the bounded tier rejected the image) can still keep these counters
+        truthful."""
+        if tier == "local":
+            self.local_hits += 1
+        elif tier == "remote":
+            self.remote_hits += 1
+        else:
+            self.misses += 1
+
+    def lookup(self, key: str, worker) -> str:
+        """:meth:`classify` + :meth:`count` in one step."""
+        tier = self.classify(key, worker)
+        self.count(tier)
+        return tier
+
+    def holds(self, key: str) -> bool:
+        """True if any worker in the cluster holds ``key``."""
+        return bool(self.holders.get(key))
+
+    def used_bytes(self) -> int:
+        """Bytes of *distinct* images resident anywhere (each counted once)."""
+        return self.ledger.used_bytes()
+
+    @property
+    def evictions(self) -> int:
+        """Cluster-wide evictions forced by ``capacity_bytes``."""
+        return self.ledger.evictions
+
+    def admit(self, key: str, nbytes: int, worker, now: float) -> list:
+        """Record that ``worker`` now holds ``key`` (``nbytes`` bytes).
+
+        Returns the keys evicted cluster-wide to make room (``on_evict`` has
+        already run for each). An image larger than ``capacity_bytes`` is
+        rejected (counted in ``rejected``) and nothing changes."""
+        cap = self.ledger.capacity_bytes
+        if cap is not None and nbytes > cap:
+            self.rejected += 1
+            return []
+        evicted = self.ledger.admit(key, nbytes, now=now)
+        for victim in evicted:
+            if self.on_evict is not None:
+                self.on_evict(victim)
+            self.holders.pop(victim, None)
+        self.holders.setdefault(key, set()).add(worker)
+        self.peak_bytes = max(self.peak_bytes, self.used_bytes())
+        return evicted
+
+    def touch(self, key: str, now: float) -> None:
+        """Refresh ``key``'s LRU timestamp (any-tier hit keeps it alive)."""
+        self.ledger.touch(key, now)
+
+    def worker_evicted(self, worker, key: str) -> None:
+        """A worker's private pool dropped ``key``. When the last holder goes,
+        the image leaves the shared tier too (the tier is the union of worker
+        pools, not separate storage), without counting a capacity eviction."""
+        held_by = self.holders.get(key)
+        if held_by is None:
+            return
+        held_by.discard(worker)
+        if not held_by:
+            del self.holders[key]
+            self.ledger.evict(key)
+
+    def summary(self) -> Dict[str, Any]:
+        return {
+            "images": sorted(self.holders),
+            "used_bytes": self.used_bytes(),
+            "peak_bytes": self.peak_bytes,
+            "local_hits": self.local_hits,
+            "remote_hits": self.remote_hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+            "rejected": self.rejected,
+        }
 
 
 class DependencyManager:

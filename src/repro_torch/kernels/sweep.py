@@ -42,9 +42,11 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as dec
 from repro_torch.kernels.diag_recurrence import ops as rec
+from repro_torch.kernels.fleet_scan.ops import BYTES_PER_ARRIVAL
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense, per the data sheet
+#: dense, per the data sheet (float64 outside the tensor cores)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.float64: 34e12}
 PRIME_CYCLES = 3_000_000       # sleep ahead of each timed run: ~1.7 ms at 1.75 GHz
 L2_SPAN = 4                    # a cold rotation moves this many L2 sizes between reuses
 
@@ -127,6 +129,16 @@ def flash_backward_work(q, k, causal, window):
     pairs = sum(max(0, h - l) for l, h in zip(lo, hi))
     moved = 4 * (3 * B * H * Sq * d + 4 * B * Hkv * Sk * d + B * H * Sq * d + B * H * Sq)
     return moved, 10 * d * pairs * B * H
+
+
+def fleet_scan_work(offsets):
+    """(bytes, operations, longest group) of one fleet_scan call over a CSR
+    batch: each arrival read once (8 B) and its four float64 and two uint8
+    outputs written once (42 B in all); five float64 operations per arrival
+    (a subtract, a multiply, three adds)."""
+    n = int(offsets[-1])
+    longest = int((offsets[1:] - offsets[:-1]).max()) if len(offsets) > 1 else 0
+    return BYTES_PER_ARRIVAL * n, 5 * n, longest
 
 
 def host_us(fn, n: int = 200) -> float:

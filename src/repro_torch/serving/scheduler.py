@@ -6,8 +6,8 @@ Placement (``place_invocation``) is image-affinity routing: prefer a worker that
 already has a warm instance, then one whose Dependency-Manager pool holds the
 needed live image (migration is a local memcpy there), then least-loaded. The
 same function drives both the live :class:`FleetScheduler` and the discrete-event
-fleet simulator (``repro.core.fleet``, not ported yet), so simulated placement decisions match
-what the serving layer would do.
+fleet simulator (``repro_torch.core.fleet``), so simulated placement decisions
+match what the serving layer would do.
 
 Straggler mitigation routes requests across serving replicas, tracking
 per-replica EWMA step latency. A replica whose in-flight request exceeds

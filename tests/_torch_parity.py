@@ -280,3 +280,22 @@ def dryrun_live_rank(rank: int, world: int, job: dict) -> dict:
                      "bytes": {k: after[k]["bytes"] - before[k]["bytes"] for k in after},
                      "parts": parts}
     return out
+
+
+def reference_lax_scan(monkeypatch):
+    """The JAX package's jitted cap=1 ``lax.scan`` (``fleet_vec._get_scan_fn``),
+    built as the reference writes it. The reference takes
+    ``jax.experimental.enable_x64``, which newer JAX releases offer only as
+    ``jax.enable_x64``; without the name it silently falls back to its numpy
+    solver, so the test lends it the name for its duration."""
+    import jax
+    import jax.experimental
+
+    from repro.core import fleet_vec
+    if not hasattr(jax.experimental, "enable_x64"):
+        monkeypatch.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                            raising=False)
+    monkeypatch.setattr(fleet_vec, "_SCAN_FN", [])
+    fn = fleet_vec._get_scan_fn()
+    assert fn is not None, "the reference's lax.scan path did not build"
+    return fn

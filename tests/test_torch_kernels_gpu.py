@@ -17,6 +17,8 @@ from repro_torch.kernels import (
     diag_recurrence_plain,
     flash_attention,
     flash_attention_plain,
+    fleet_scan,
+    fleet_scan_plain,
     page_gather,
     page_gather_plain,
 )
@@ -456,3 +458,28 @@ def test_diag_recurrence_backward_on_both_routes():
         for name, g, r in zip(("a", "b", "h0"), grads, ref):
             bound = 1e-4 * float(r.abs().max())
             assert float((g - r).abs().max()) <= bound, (name, route)
+
+
+@pytest.mark.gpu
+def test_fleet_scan_kernel_bitwise_equals_plain():
+    """Every group of a CSR batch, at lengths around the reference's pad
+    buckets, under a tight and a loose keep-alive: all six outputs bitwise."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    lengths = [1, 2, 63, 64, 65, 128, 1000, 5]
+    groups = [np.cumsum(np.where(rng.random(n) < 0.1, rng.exponential(20.0, n),
+                                 rng.exponential(0.03, n))) for n in lengths]
+    offsets = torch.from_numpy(np.r_[0, np.cumsum(lengths)].astype(np.int64))
+    t = torch.from_numpy(np.concatenate(groups))
+    for ka in (0.02, 15.0):
+        consts = (2.0, 1.39, 2.0 / 60.0, 1.39 / 60.0, ka)
+        before = fleet_scan.launches
+        got = fleet_scan(t.to(dev), offsets.to(dev), *consts)
+        torch.cuda.synchronize()
+        assert fleet_scan.launches == before + 1
+        want = fleet_scan_plain(t, offsets, *consts)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+        n_cold, n_queued = int(want[4].sum()), int(want[5].sum())
+        assert n_cold > len(lengths) and n_queued > 0 and n_cold + n_queued < len(t), \
+            "a branch of the recursion went untested"

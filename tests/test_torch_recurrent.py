@@ -373,4 +373,6 @@ def test_port_imports_no_jax():
             "repro_torch.optim.compression", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
             "repro_torch.core.aot", "repro_torch.models.sharding",
-            "repro_torch.launch.mesh", "repro_torch.launch.cluster"} <= names
+            "repro_torch.launch.mesh", "repro_torch.launch.cluster",
+            "repro_torch.core.scenario", "repro_torch.core.fleet_vec",
+            "repro_torch.kernels.fleet_scan.ops"} <= names
