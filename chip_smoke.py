@@ -130,10 +130,25 @@ families, and checks them:
    the card): equal, and the dependency-loading speedup in 2.2-3.2;
    sharing_fig7's memory saving; (d) the paper's page model's predicted
    cold start (tier local) beside qwen1.5-0.5b's measured warmswap and
-   baseline starts.
+   baseline starts;
+20. bf16 training and the experiments layer: (a) the tensor-core forward's
+   rows' lse and the bf16 flash backward kernels at qwen1.5-0.5b's training
+   shape (B=4, S=1024, 16 heads, d=64, causal) against the plain version,
+   dq, dk, dv within 2e-2 of their largest |entry| (timed in phase 6 beside
+   bf16 SDPA's backward and the bf16 tensor-core bound); (b) qwen1.5-0.5b
+   trained in bf16 at full width and depth, B=4, S=1024, remat=unit, 10
+   steps through ``models/api.make_train_step``: a finite, falling loss,
+   step time and tokens/s beside phase 14's fp32; (c) run among phase 18's
+   cases on the same 4 ranks: one qwen1.5-0.5b train step on 2 x 2 with
+   ZeRO-1 moments, its parameters, loss and grad_norm bitwise those of the
+   step with whole moments, each rank's moment bytes; (d) the experiments
+   CLI with ``REPRO_FLEET_VEC_SCAN=1`` on the card: a sweep of page_headline
+   (smoke, fleet_vec, 4 seeds) serially and on 2 spawned workers, both
+   stores byte-equal to the numpy solver's, then the smoke tournament with
+   every method's minimum oracle gaps finite and >= 0.
 
 Each phase prints its seconds. The launch counters are set to 0 just before
-each driven path (phases 4, 5, 7-14, 16, 19b-d) and read just after; a kernel the
+each driven path (phases 4, 5, 7-14, 16, 19b-d, 20b-d) and read just after; a kernel the
 path did not launch fails the run; falcon-mamba's path must run diag_recurrence on its sequential route and
 recurrentgemma's on its chunked route. Each phase frees its models before
 the next. Any failed check exits non-zero. The last line is the JSON device
@@ -183,6 +198,7 @@ DECODE_GRIFFIN = (SERVE_SLOTS, 10, 1, 2048, 256)  # its decode: B, H, Hkv, C = w
 FLASH_H2O = (1, 32, 8, 4608, 120, 4096)       # h2o-danube3-4b prefill: B, H, Hkv, S, d, window
 FLASH_ENCODER = (1, 12, 12, 1500, 64)         # whisper-small encoder (non-causal)
 FLASH_CROSS = (1, 12, 12, 64, 1500, 64)       # whisper cross prefill: B, H, Hkv, Sq, Sk, d
+FLASH_GRANITE = (1, 24, 8, 2048, 64)          # granite-moe-3b prefill, fp32: B, H, Hkv, S, d
 FRONTEND_BATCH, FRONTEND_PROMPT, FRONTEND_NEW = 2, 64, 32   # whisper / internvl2 serve steps
 DECODE_GRANITE = (SERVE_SLOTS, 24, 8, SERVE_SEQ, 64)        # granite-moe-3b decode: g = 3
 DECODE_INTERNVL = (FRONTEND_BATCH, 14, 2, 256 + FRONTEND_PROMPT + FRONTEND_NEW, 64)  # g = 7
@@ -504,7 +520,8 @@ def check_flash(device, errs: dict) -> None:
         cases.append((dtype, B, H, Hkv, S, S, d, False, None, None))
         B, H, Hkv, Sq, Sk, d = FLASH_CROSS
         cases.append((dtype, B, H, Hkv, Sq, Sk, d, False, None, None))
-        cases.append((dtype, 1, 24, 8, 2048, 2048, 64, True, None, None))   # g = 3
+        B, H, Hkv, S, d = FLASH_GRANITE                               # g = 3
+        cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
         cases.append((dtype, 1, 14, 2, 320, 320, 64, True, None, None))     # g = 7
         B, H, Hkv, S, d = FLASH_MOONSHOT
         cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
@@ -512,7 +529,8 @@ def check_flash(device, errs: dict) -> None:
     # this slice's timed shapes: (path, dtype the path runs, B, H, Hkv, Sq, Sk, d)
     timed = [("h2o", torch.bfloat16, *FLASH_H2O[:4], *FLASH_H2O[3:5]),
              ("whisper", torch.float32, *FLASH_ENCODER[:4], *FLASH_ENCODER[3:]),
-             ("whisper", torch.float32, *FLASH_CROSS)]
+             ("whisper", torch.float32, *FLASH_CROSS),
+             ("granite", torch.float32, *FLASH_GRANITE[:4], *FLASH_GRANITE[3:])]
     for (dtype, B, H, Hkv, Sq, Sk, d, causal, window, cap) in cases:
         q = torch.randn((B, H, Sq, d), generator=gen, device=device).to(dtype)
         k = torch.randn((B, Hkv, Sk, d), generator=gen, device=device).to(dtype)
@@ -2115,6 +2133,9 @@ SHARD_CASES = {
     "18h": ("whisper_small", None, (1, 4), "serve"),      # 3 heads a rank, cross state whole
     "18i": ("internvl2_1b", None, (2, 2), "serve"),       # 7 q / 1 kv heads a rank: g = 7
     "18j": ("qwen3_1_7b", None, (2, 1, 2), "serve"),      # pod x data x model
+    # 20c: one train step with ZeRO-1 moments against the same step with whole
+    # moments, from the same shards, in the same ranks (no one-rank reference)
+    "20c": ("qwen1_5_0_5b", None, (2, 2), "zero1"),
 }
 # serve cases: batch, prompt, tokens after it (the first K-1 fed teacher-forced to
 # the decode steps), cache positions (after internvl2's 256 patches)
@@ -2260,6 +2281,8 @@ def shard_references(device, refs: str, tag: str = "18") -> None:
     from repro_torch.models.transformer import forward
     from repro_torch.optim import adamw_init
     for case, (arch, _, _, work) in SHARD_CASES.items():
+        if work == "zero1":                  # held against its own ranks' other step
+            continue
         cfg = _shard_cfg(case)
         t0 = time.perf_counter()
         params, _ = _shard_params(cfg, device)
@@ -2312,12 +2335,12 @@ def shard_references(device, refs: str, tag: str = "18") -> None:
 def _rank_case(case: str, rank: int, device, refs: str) -> dict:
     """One case on this rank: the driven path counted, then its checks."""
     import torch
-    from repro_torch.core.tree import flatten_with_keys
+    from repro_torch.core.tree import TreeDef, flatten_with_keys, leaves
     from repro_torch.kernels.diag_recurrence.ops import plan_recurrence
     from repro_torch.kernels.flash_attention.ops import flash_attention_backward
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import sharding as sh
-    from repro_torch.models.api import loss_and_grads
+    from repro_torch.models.api import init_opt_state, loss_and_grads
     from repro_torch.models.transformer import forward
     from repro_torch.optim import adamw_init
     arch, _, mesh, work = SHARD_CASES[case]
@@ -2325,7 +2348,8 @@ def _rank_case(case: str, rank: int, device, refs: str) -> dict:
     tp = mesh[-1]
     par = sh.Parallel.of(make_local_mesh(tp, device.type, pods=mesh[0] if len(mesh) == 3
                                          else 1), cfg)
-    ref = torch.load(os.path.join(refs, f"{case}.pt"), mmap=True, weights_only=False)
+    ref = (None if work == "zero1" else
+           torch.load(os.path.join(refs, f"{case}.pt"), mmap=True, weights_only=False))
     kernels = kernel_fns()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2392,6 +2416,42 @@ def _rank_case(case: str, rank: int, device, refs: str) -> dict:
             want = sh.shard_leaf(k, ref["params"][k], flat_specs[k], par).to(device)
             worst = max(worst, float((v - want).abs().max()))
         out["param_err"] = worst
+    elif work == "zero1":
+        B, S = TRAIN_SHAPE
+        batch = _shard_batch(cfg, B, S, device, par)
+        whole = TreeDef.of(params).unflatten([t.clone() for t in leaves(params)])
+        runs = {}
+        for name, p, pp in (("whole", whole, par),
+                            ("zero1", params, dataclasses.replace(par, zero1=True))):
+            opt = init_opt_state(p, cfg, pp)
+            moment_bytes = sum(t.numel() * t.element_size()
+                               for t in leaves([opt["mu"], opt["nu"]]))
+            reset_counts(kernels.values())
+            sync(device)
+            t1, calls = time.perf_counter(), sh.all_reduce.calls
+            new, opt, m = _shard_train_step(cfg, pp)(p, opt, batch, 0)
+            sync(device)
+            runs[name] = {"params": new, "metrics": (m["loss"], m["grad_norm"]),
+                          "moment_bytes": moment_bytes,
+                          "step_s": time.perf_counter() - t1,
+                          "all_reduces": sh.all_reduce.calls - calls}
+            del opt
+        counts = {k: v.launches for k, v in kernels.items()}    # the ZeRO-1 step's
+        flash = kernels["flash_attention"]
+        out["flash_per_step"] = {"forward": flash.launches_by_pass["forward"],
+                                 "recompute": flash.launches_by_pass["recompute"],
+                                 "backward": flash_attention_backward.launches}
+        w, z = runs["whole"], runs["zero1"]
+        out["params_bitwise"] = all(torch.equal(_bits(a), _bits(b)) for a, b in
+                                    zip(leaves(w["params"]), leaves(z["params"])))
+        out["metrics_bitwise"] = all(torch.equal(_bits(a), _bits(b)) for a, b in
+                                     zip(w["metrics"], z["metrics"]))
+        out["loss"] = float(z["metrics"][0])
+        out["moment_bytes"] = {n: r["moment_bytes"] for n, r in runs.items()}
+        out["times"] = {"step_s": z["step_s"], "whole_step_s": w["step_s"],
+                        "step_all_reduces": z["all_reduces"],
+                        "extra_all_reduces": z["all_reduces"] - w["all_reduces"]}
+        del whole, runs, w, z
     else:
         sync(device)
         t1, calls, nbytes = time.perf_counter(), sh.all_reduce.calls, sh.all_reduce.bytes
@@ -2421,6 +2481,12 @@ def _rank_case(case: str, rank: int, device, refs: str) -> dict:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def _bits(t):
+    """A float tensor's bits, as integers of its width (bitwise comparison)."""
+    import torch
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
 def shard_rank(rank: int, world: int, refs: str, device_type: str) -> dict:
@@ -2496,6 +2562,7 @@ def check_sharded(ranks: list, tag: str = "18") -> dict:
                    "peak_gb": [round(r["peak_gb"], 3) for r in rs], "counts": case_counts}
         want = {"serve": ("flash_attention", "decode_attention"),
                 "train": ("flash_attention", "flash_attention_backward"),
+                "zero1": ("flash_attention", "flash_attention_backward"),
                 "forward": ("flash_attention",)}[work]
         if arch == "falcon_mamba_7b":
             want = ("diag_recurrence",)
@@ -2545,6 +2612,23 @@ def check_sharded(ranks: list, tag: str = "18") -> dict:
                 expect(r0["grads_held"] > 0 and summary["grad_rel_err"] <= GRAD_TOL,
                        f"[{case}] gradients of {SHARD_GRADS[case]} differ from one rank's "
                        f"by {summary['grad_rel_err']} of their largest > {GRAD_TOL}")
+        elif work == "zero1":
+            n_layers = _attn_layers(_shard_cfg(case))
+            summary.update(loss=r0["loss"], flash=r0["flash_per_step"],
+                           moment_bytes=[r["moment_bytes"] for r in rs],
+                           params_bitwise=[r["params_bitwise"] for r in rs],
+                           metrics_bitwise=[r["metrics_bitwise"] for r in rs])
+            expect(all(r["params_bitwise"] and r["metrics_bitwise"] for r in rs),
+                   f"[{case}] the ZeRO-1 step's parameters or loss / grad_norm differ "
+                   f"from the step with whole moments: {summary}")
+            expect(all(r["moment_bytes"]["zero1"] < r["moment_bytes"]["whole"]
+                       for r in rs), f"[{case}] ZeRO-1 did not cut the moments: "
+                                     f"{summary['moment_bytes']}")
+            expect(r0["times"]["extra_all_reduces"] == 1,
+                   f"[{case}] ZeRO-1 added {r0['times']['extra_all_reduces']} "
+                   f"all_reduces to the step, not 1")
+            expect(r0["flash_per_step"] == dict.fromkeys(r0["flash_per_step"], n_layers),
+                   f"[{case}] flash launches a rank {r0['flash_per_step']}")
         elif work == "forward":
             summary.update(alike=r0["alike"], positions=r0["positions"],
                            rel_err=r0["rel_err"])
@@ -2819,6 +2903,194 @@ def phase_predicted(cfg, manager, tmp: str, tag: str = "19d") -> dict:
     return {"counts": counts, "table": table}
 
 
+# ---------------------------------------------------------------------------------
+# 20. bf16 training (the bf16 flash backward), ZeRO-1 (20c runs in phase 18's
+# ranks), the experiments layer with the scan on the card
+# ---------------------------------------------------------------------------------
+
+#: 20a: qwen1.5-0.5b's training attention, bf16: B, H, Hkv, S, d (causal)
+BF16_GRAD = (4, 16, 16, 1024, 64)
+BF16_GRAD_TOL = 2e-2       # of the largest |gradient| in each of dq, dk, dv: bf16's bar
+#: 20b: peak rate of the bf16 run (one warm-up step). An Adam step moves a
+#: weight by about the rate; a bf16 weight of magnitude 0.02 has an ulp of
+#: 1.2e-4, so phase 14's 3e-5 .. 3e-4 would round most steps away
+BF16_TRAIN_LR = 1e-3
+#: 20d: the sweep over page_headline at smoke scale on the vectorized engine
+#: (every group cap=1, so the scan takes them all), four trace seeds; not 3: it
+#: draws a function of 112 M arrivals a day, and seeds 0-3 took 370 s with the
+#: numpy solver and 66 s with the scan (one H100 host)
+EXPERIMENT_AXES = ["--axis", "engine=fleet_vec", "--axis", "traces.kwargs.seed=0,1,2,4"]
+
+
+def check_bf16_backward(device, errs: dict, tag: str = "20a") -> dict:
+    """20a: the tensor-core forward's rows' lse and the bf16 backward kernels
+    at qwen1.5-0.5b's training shape against the plain version on the same
+    bf16 inputs: lse within LSE_TOL of the plain logsumexp of the fp32
+    logits; dq, dk, dv (bf16) each within BF16_GRAD_TOL of its largest
+    |entry| of torch.autograd.grad through the plain version."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (_plain_scores,
+                                                         flash_attention_backward,
+                                                         flash_attention_backward_plain)
+    B, H, Hkv, S, d = BF16_GRAD
+    gen = torch.Generator(device=device).manual_seed(41)
+    q = torch.randn((B, H, S, d), generator=gen, device=device).to(torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, S, d), generator=gen, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    dout = torch.randn(q.shape, generator=gen, device=device).to(torch.bfloat16)
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, True, None, None, d ** -0.5,
+                                                     True)
+    want = torch.logsumexp(_plain_scores(q, k, True, None, None, None), -1).reshape(lse.shape)
+    lse_err = float((lse - want).abs().max())
+    expect(lse_err <= LSE_TOL[0] + LSE_TOL[1] * float(want.abs().max()),
+           f"[{tag}] tc_bf16 lse differs from the plain one by {lse_err}")
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+    sync(device)
+    expect(flash_attention_backward.launches == before + 1,
+           f"[{tag}] the bf16 backward did not launch its kernel")
+    ref = flash_attention_backward_plain(q, k, v, dout, causal=True)
+    worst, rel = 0.0, []
+    for name, g, r in zip("qkv", got, ref):
+        scale = float(r.float().abs().max())
+        err = float((g.float() - r.float()).abs().max())
+        expect(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+               and err <= BF16_GRAD_TOL * scale,
+               f"[{tag}] bf16 flash backward d{name}: {g.dtype}, max |err| {err:.3e} "
+               f"against {BF16_GRAD_TOL} x {scale:.3e}")
+        worst = max(worst, err)
+        rel.append(err / scale)
+    errs["flash_attention_backward:bf16"] = worst
+    log(f"[{tag}] bf16 flash backward B{B} H{H}/{Hkv} S{S} d{d} causal: lse max |err| "
+        f"{lse_err:.3e}; max |err| / max |g| dq {rel[0]:.3e} dk {rel[1]:.3e} dv "
+        f"{rel[2]:.3e} (bar {BF16_GRAD_TOL}); max |err| {worst:.3e}")
+    return {"lse_err": lse_err, "rel_err": rel, "max_abs_err": worst}
+
+
+def phase_train_bf16(device, fp32: dict, tag: str = "20b") -> dict:
+    """20b: qwen1.5-0.5b at full width and depth in bf16 (parameters bf16,
+    AdamW moments fp32), B=4, S=1024, remat=unit, TRAIN_STEPS steps through
+    ``models/api.make_train_step`` (the launcher trains in fp32, as the
+    reference's does): every flash launch on the tensor-core route, 24
+    forwards, recomputes and bf16 backwards a step, a finite falling loss;
+    step time and tokens/s beside phase 14's fp32 run (``fp32``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline, batch_to_torch
+    from repro_torch.models.api import init_opt_state, make_train_step
+    from repro_torch.models.transformer import init_params
+    kernels = {k: v for k, v in kernel_fns().items()
+               if k in ("flash_attention", "flash_attention_backward")}
+    cfg = get_config("qwen1_5_0_5b")
+    B, S = TRAIN_SHAPE
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg, torch.bfloat16)
+    opt = init_opt_state(params, cfg)
+    step_fn = make_train_step(cfg, peak_lr=BF16_TRAIN_LR, warmup_steps=1, total_steps=100,
+                              remat="unit")
+    data = DataConfig(global_batch=B, seq_len=S, seed=0)
+    batches = [batch_to_torch(SyntheticTokenPipeline.batch_at(cfg, data, s), device)
+               for s in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts(kernels.values())
+    losses, times = [], []
+    for s, batch in enumerate(batches):
+        sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, s)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = {k: v.launches for k, v in kernels.items()}
+    flash = kernels["flash_attention"]
+    per_step = {"forward": flash.launches_by_pass["forward"] / TRAIN_STEPS,
+                "recompute": flash.launches_by_pass["recompute"] / TRAIN_STEPS,
+                "backward": kernels["flash_attention_backward"].launches / TRAIN_STEPS}
+    expect(per_step == dict.fromkeys(per_step, cfg.n_layers),
+           f"[{tag}] {per_step} flash launches a step, not {cfg.n_layers} each")
+    expect(flash.launches_by_route["tc_bf16"] == flash.launches,
+           f"[{tag}] flash routes {flash.launches_by_route}: not all tc_bf16")
+    expect(all(p.dtype in (torch.bfloat16, torch.float32) for p in leaves(params))
+           and any(p.dtype == torch.bfloat16 for p in leaves(params)),
+           f"[{tag}] the parameters left bf16")
+    expect(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+           f"[{tag}] bf16 training loss: {losses}")
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    log(f"[{tag}] qwen1.5-0.5b bf16 B{B} S{S} remat=unit, {TRAIN_STEPS} steps (peak rate "
+        f"{BF16_TRAIN_LR}): loss {losses[0]:.4f} -> {losses[-1]:.4f}; step times (s, after "
+        f"the first) {[round(t, 4) for t in times[1:]]}; median {step_s:.4f} s, "
+        f"{B * S / step_s:.1f} tokens/s (phase 14 fp32: {fp32['median_step_s']:.4f} s, "
+        f"{fp32['tokens_per_s']:.1f} tokens/s); first step {times[0]:.3f} s; peak "
+        f"{peak:.2f} GB; launches a step {per_step}")
+    del params, opt, batches
+    return {"counts": counts, "losses": losses, "median_step_s": step_s,
+            "tokens_per_s": B * S / step_s, "first_step_s": times[0], "peak_gb": peak,
+            "fp32_median_step_s": fp32["median_step_s"],
+            "fp32_tokens_per_s": fp32["tokens_per_s"], "flash_per_step": per_step}
+
+
+def phase_experiments(device, tmp: str, tag: str = "20d") -> dict:
+    """20d: the experiments CLI (``python -m repro_torch.experiments``'s
+    ``main``) with ``REPRO_FLEET_VEC_SCAN=1`` on the card: a sweep of
+    page_headline (smoke, fleet_vec, 4 seeds) serially and on 2 spawned
+    workers, each point's groups in one fleet_scan launch per method; both
+    stores byte-equal, and equal to the store with the scan off (the numpy
+    solver); then the smoke tournament (36 cells, the event engine) with
+    every method's minimum oracle gaps finite and >= 0."""
+    import io
+    from repro_torch.experiments import main as experiments
+    from repro_torch.kernels import fleet_scan
+    spec = os.path.join(SCENARIOS, "page_headline.json")
+    cli_log = io.StringIO()
+
+    def cli(*argv) -> float:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(cli_log), contextlib.redirect_stderr(cli_log):
+            rc = experiments(list(argv))
+        expect(rc == 0, f"[{tag}] experiments {argv[0]} exited {rc}")
+        return time.perf_counter() - t0
+
+    stores, secs = {}, {}
+    for name, scan, extra in (("serial", True, ()), ("parallel", True, ("--parallel", "2")),
+                              ("numpy", False, ())):
+        path = os.path.join(tmp, f"sweep_{name}.jsonl")
+        if name == "serial":
+            reset_counts([fleet_scan])
+        with scan_switch(scan):
+            secs[name] = cli("sweep", spec, "--smoke", *EXPERIMENT_AXES, "--store", path,
+                             "--device", "cuda", *extra)
+        if name == "serial":
+            counts = {"fleet_scan": fleet_scan.launches}
+        with open(path, "rb") as f:
+            stores[name] = f.read()
+    n_points = len(EXPERIMENT_AXES[-1].split("=")[1].split(","))
+    expect(counts["fleet_scan"] == 2 * n_points,
+           f"[{tag}] the serial sweep launched fleet_scan {counts['fleet_scan']} times, "
+           f"not once per point and method")
+    expect(stores["serial"] == stores["parallel"] == stores["numpy"],
+           f"[{tag}] the stores differ: serial, --parallel 2 and numpy")
+    records = stores["serial"].decode().splitlines()[1:]
+    expect(len(records) == n_points, f"[{tag}] {len(records)} records, not {n_points}")
+    sha = hashlib.sha256(stores["serial"]).hexdigest()[:16]
+    out = os.path.join(tmp, "tournament.json")
+    secs["tournament"] = cli("tournament", os.path.join(SCENARIOS, "tournament.json"),
+                             "--smoke", "--out", out)
+    with open(out) as f:
+        report = json.load(f)
+    gaps = report["min_gaps"]
+    expect(len(report["cells"]) == 36 and all(
+        math.isfinite(g[k]) and g[k] >= 0 for g in gaps.values()
+        for k in ("min_total_gap_s", "min_p99_gap_s")),
+        f"[{tag}] tournament: {len(report['cells'])} cells, min gaps {gaps}")
+    log(f"[{tag}] experiments sweep of page_headline (smoke, fleet_vec, {n_points} seeds): serial "
+        f"{secs['serial']:.2f} s (scan on the card, launches {counts}), --parallel 2 "
+        f"{secs['parallel']:.2f} s (scan on the card in 2 spawned workers), numpy "
+        f"{secs['numpy']:.2f} s; the three stores byte-equal ({len(stores['serial'])} B, "
+        f"sha256 {sha}); tournament (smoke, {len(report['cells'])} cells) "
+        f"{secs['tournament']:.2f} s, min gaps {json.dumps(gaps)}")
+    return {"counts": counts, "seconds": secs, "store_sha256": sha, "min_gaps": gaps}
+
+
 def _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, label: str):
     """Times flash_attention at one shape beside its plain version and SDPA
     (given the explicit mask where a window cuts keys), with the bound from
@@ -2854,7 +3126,7 @@ def _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, label: 
 
 
 def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
-                path_routes: dict, decode_inputs: dict) -> list:
+                path_routes: dict, decode_inputs: dict, core_d64: int) -> list:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import (decode_attention, diag_recurrence, flash_attention,
@@ -2946,42 +3218,62 @@ def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
               "whisper encoder, non-causal")
     flash_row(torch.float32, FLASH_CROSS, False, None, "whisper", "whisper cross prefill")
 
-    # the flash_attention backward (fp32) at qwen1.5-0.5b's training shape,
-    # from a forward that kept its rows' lse, beside the plain version
-    # (autograd through it, forward included) and SDPA's backward alone
+    # the flash_attention backward at qwen1.5-0.5b's training shape, fp32 (phase
+    # 14's) and bf16 (20b's), from a forward that kept its rows' lse, beside the
+    # plain version (autograd through it, forward included) and SDPA's backward
+    # alone in the same dtype; each row's launches are its dtype's paths'
     from repro_torch.kernels.flash_attention.ops import (flash_attention_backward,
                                                          flash_attention_backward_plain)
     from repro_torch.kernels.sweep import flash_backward_work
     B, S = TRAIN_SHAPE
     H, Hkv, _, _, d, causal, window, cap = FLASH_GRAD["qwen1.5-0.5b"]
-    q = torch.randn((B, H, S, d), generator=gen, device=device)
-    k, v = (torch.randn((B, Hkv, S, d), generator=gen, device=device) for _ in range(2))
-    dout = torch.randn(q.shape, generator=gen, device=device)
-    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, cap,
-                                                     d ** -0.5, True)
-    t_k = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout, causal=causal))
-    t_p = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, dout, causal=causal),
-                  iters=5, per=2, warmup=1)
-    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    with torch.enable_grad():
-        o_l = F.scaled_dot_product_attention(*qkv, is_causal=causal)
-    t_l = cuda_ms(lambda: torch.autograd.grad(o_l, qkv, dout, retain_graph=True))
-    t_k2 = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout, causal=causal))
-    moved, ops = flash_backward_work(q, k, causal, window)
-    bound, by = bound_ms(moved, ops, torch.float32)
-    log(f"[6] flash_attention backward fp32 B{B} H{H}/{Hkv} S{S} d{d} causal: kernel "
-        f"{t_k:.4f} / {t_k2:.4f} ms ({ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
-        f"{bound / t_k:.4f} of the bound), plain (autograd through the plain forward) "
-        f"{t_p:.4f} ms, sdpa backward {t_l:.4f} ms, bound {bound:.5f} ms ({by})")
-    rows.append({"name": "flash_attention_backward", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                 "replaces": "src/repro/models/attention.py:111",
-                 "shape": f"qwen1.5 training fp32 B{B} H{H}/{Hkv} S{S} d{d} causal "
-                          f"(no TPU kernel: the reference differentiates jnp attention)",
-                 "launches": launches["flash_attention_backward"],
-                 "max_abs_err": errs["flash_attention_backward"], "ms": t_k,
-                 "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": t_l})
-    del q, k, v, dout, out, lse, qkv, o_l
+    bf16_launches = path_counts["train-bf16"]["flash_attention_backward"]
+    for dtype, n, err in ((torch.float32,
+                           launches["flash_attention_backward"] - bf16_launches,
+                           errs["flash_attention_backward"]),
+                          (torch.bfloat16, bf16_launches,
+                           errs["flash_attention_backward:bf16"])):
+        name = str(dtype).split(".")[1]
+        q = torch.randn((B, H, S, d), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((B, Hkv, S, d), generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, cap,
+                                                         d ** -0.5, True)
+        t_k = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout,
+                                                       causal=causal))
+        t_p = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, dout, causal=causal),
+                      iters=5, per=2, warmup=1)
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            o_l = F.scaled_dot_product_attention(*qkv, is_causal=causal)
+        t_l = cuda_ms(lambda: torch.autograd.grad(o_l, qkv, dout, retain_graph=True))
+        t_k2 = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout,
+                                                        causal=causal))
+        moved, ops = flash_backward_work(q, k, causal, window)
+        bound, by = bound_ms(moved, ops, dtype)
+        log(f"[6] flash_attention backward {name} B{B} H{H}/{Hkv} S{S} d{d} causal: kernel "
+            f"{t_k:.4f} / {t_k2:.4f} ms ({ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"{bound / t_k:.4f} of the bound), plain (autograd through the plain forward) "
+            f"{t_p:.4f} ms, sdpa backward {t_l:.4f} ms, bound {bound:.5f} ms ({by}, at the "
+            f"{name} peak); launches {n}")
+        rows.append({"name": "flash_attention_backward", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": "src/repro/models/attention.py:111",
+                     "shape": f"qwen1.5 training {name} B{B} H{H}/{Hkv} S{S} d{d} causal "
+                              f"(no TPU kernel: the reference differentiates jnp attention; "
+                              f"launches: the {name} training paths')",
+                     "launches": n, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": bound, "bound_by": by, "library_ms": t_l})
+        del q, k, v, dout, out, lse, qkv, o_l
+    # the fp32 cuda_core route at d=64 (granite-moe's, whisper's and internvl2's
+    # fp32 prefills), at granite-moe's serving prefill
+    B, H, Hkv, S, d = FLASH_GRANITE
+    row = _flash_row(gen, device, torch.float32, B, H, Hkv, S, S, d, True, None,
+                     "granite-moe prefill (cuda_core d=64)")
+    rows.append({**flash, "shape": f"granite-moe prefill fp32 B{B} H{H}/{Hkv} S{S} d{d} "
+                                   f"causal (cuda_core; launches: every fp32 d=64 path's)",
+                 "launches": core_d64, "max_abs_err": errs["flash_attention:granite"], **row})
     qh = torch.randn((1, 16, 64, 64), generator=gen, device=device).to(torch.bfloat16)
     log(f"[6] flash_attention wrapper host time per call, qwen1.5 prefill S=64 bf16 (no "
         f"gradient): {host_us(lambda: flash_attention(qh, qh, qh)):.2f} us")
@@ -3174,6 +3466,16 @@ def main() -> int:
         path_counts["predicted"] = predicted.pop("counts")
         log(f"[19] phase {time.perf_counter() - t19:.1f} s")
         peaks.append(free_device("19"))
+        t20 = time.perf_counter()
+        bf16_check = timed("20a", check_bf16_backward, device, errs)
+        peaks.append(free_device("20a"))
+        train_bf16 = timed("20b", phase_train_bf16, device, train)
+        path_counts["train-bf16"] = train_bf16.pop("counts")
+        peaks.append(free_device("20b"))
+        experiments = timed("20d", phase_experiments, device, tmp)
+        path_counts["experiments"] = experiments.pop("counts")
+        log(f"[20] phase {time.perf_counter() - t20:.1f} s (20c ran in phase 18's ranks)")
+        peaks.append(free_device("20"))
     launches = {k: sum(c.get(k, 0) for c in path_counts.values()) for k in kernel_fns()}
     log(f"[6] launches on the main paths: {launches}")
     path_counts["whisper-cross"] = path_counts["whisper"]
@@ -3198,7 +3500,8 @@ def main() -> int:
                   "granite": granite.pop("decode_inputs"),
                   "internvl2": internvl.pop("decode_inputs"),
                   "whisper-cross": whisper.pop("decode_inputs"),
-                  "h2o": h2o.pop("decode_inputs")})
+                  "h2o": h2o.pop("decode_inputs")},
+                 core_by_d.get(64, 0))
     scan = {"name": "fleet_scan", "route": "cuda", "source": "src/repro_torch/csrc/fleet_scan.cu",
             "replaces": "src/repro/core/fleet_vec.py:208", "launches": launches["fleet_scan"],
             "library_ms": None}
@@ -3226,6 +3529,7 @@ def main() -> int:
     log(f"[17] export summary: {json.dumps(aot)}")
     log(f"[18] sharded summary: {json.dumps(sharded)}")
     log(f"[19] simulation summary: {json.dumps({'scan_check': scan_check, **scale, **band, **predicted})}")
+    log(f"[20] summary: {json.dumps({'20a': bf16_check, '20b': train_bf16, '20c': sharded['20c'], '20d': experiments})}")
     log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory {max(peaks) / 1e9:.2f} GB")
     print(card, flush=True)

@@ -79,7 +79,7 @@ class FunctionInstance:
         self.params = params
         self.handler_weights = handler_weights
         self.execs = execs
-        # Live-side instance age for keep-alive.
+        # Live-side instance age for keep-alive.  # repro-lint: allow[wall-clock]
         self.started_at = time.monotonic()
 
     def invoke(self, request: Any):

@@ -254,7 +254,7 @@ def _solve_groups_scan(all_t: np.ndarray, order2: np.ndarray, segs: list,
         out.append((nc, int(sizes[g]) - nc - nd, nd,
                     recs_all[cuts[g]:cuts[g + 1]]))
     # Diagnostics counter, reset per simulate_fleet_vec call; never feeds
-    # results.
+    # results.  # repro-lint: allow[module-mutable]
     SCAN_STATS["groups"] += len(segs)
     return out
 

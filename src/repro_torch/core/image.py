@@ -65,7 +65,7 @@ class LiveDependencyImage:
         self.treedef = treedef
         self.executables = executables or {}   # key -> callable
         self.refcount = 0
-        # Live-manager LRU clock.
+        # Live-manager LRU clock.  # repro-lint: allow[wall-clock]
         self.last_used = time.monotonic()
 
     @property
@@ -152,7 +152,7 @@ def build_image(
     md = ImageMetadata(
         image_id=image_id, arch_name=arch_name, dtype=dtype, page_table=table,
         # Provenance timestamp on the live image, not a simulated quantity.
-        treedef_repr=str(treedef), created_at=time.time(),
+        treedef_repr=str(treedef), created_at=time.time(),  # repro-lint: allow[wall-clock]
         content_hash=content_hash(store, table.n_pages),
         compile_keys=tuple(sorted((executables or {}).keys())),
     )

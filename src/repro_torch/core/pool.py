@@ -352,7 +352,7 @@ class DependencyManager:
                 self.stats.hits += 1
                 img = self._images[image_id]
                 # LRU recency clock for the live manager tier — not part of
-                # any simulated result.
+                # any simulated result.  # repro-lint: allow[wall-clock]
                 img.last_used = time.monotonic()
                 self._ledger.touch(image_id, img.last_used)
                 return img
@@ -411,7 +411,7 @@ class DependencyManager:
         img = self._ensure_live(image_id)
         with self._lock:
             img.refcount += 1
-            # Live-manager LRU clock.
+            # Live-manager LRU clock.  # repro-lint: allow[wall-clock]
             img.last_used = time.monotonic()
             self._ledger.acquire(image_id)
             self._ledger.touch(image_id, img.last_used)

@@ -139,7 +139,7 @@ class FunctionSpec:
     checkpoint_path: Optional[str] = None   # baseline path: full per-fn checkpoint
     handler_bytes: int = 0
     # Provenance timestamp on the live registry entry; simulated results
-    # never read it.
+    # never read it.  # repro-lint: allow[wall-clock]
     registered_at: float = field(default_factory=time.time)
 
 

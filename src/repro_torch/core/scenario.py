@@ -42,13 +42,15 @@ memory-saving headline and the 2.2–3.2× dependency-loading band — holds
 through the declarative path by construction (asserted in
 ``tests/test_scenario.py``).
 
-The port has no CLI yet (the reference's is ``python -m repro.experiments``);
-shipped specs live in ``benchmarks/scenarios/`` and load in both packages.
-Schema reference: ``docs/API.md``.
+CLI: ``python -m repro_torch.experiments run scenario.json`` /
+``... sweep scenario.json --axis n_workers=1,4,16``; shipped specs live in
+``benchmarks/scenarios/`` and load in both packages. Schema reference:
+``docs/API.md``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -63,6 +65,7 @@ from repro_torch.core.simulator import (COST_MODELS, CostModel,
                                   memory_saving_fraction, quartile_latencies)
 from repro_torch.core.trace_stream import NON_SEMANTIC_TRACE_KWARGS, TraceStream
 from repro_torch.core.traces import TRACE_GENERATORS, Trace
+from repro_torch.device import DeviceLike
 
 #: Version of the :class:`Scenario` JSON schema this build reads and writes.
 SCHEMA_VERSION = 1
@@ -513,7 +516,7 @@ def _method_result(r, traces: List[Trace]) -> MethodResult:
 
 def run(scenario: Scenario, *, smoke: bool = False,
         overrides: Optional[RunOverrides] = None,
-        sanitize: Optional[bool] = None) -> Result:
+        sanitize: Optional[bool] = None, device: DeviceLike = None) -> Result:
     """Run one scenario end to end: resolve components from the registries,
     simulate every method, return the unified :class:`Result`.
 
@@ -532,6 +535,8 @@ def run(scenario: Scenario, *, smoke: bool = False,
             drain step, a :class:`~repro_torch.core.sanitize.SanitizeError` with
             a repro artifact on violation, bit-identical results otherwise.
             ``None`` (default) follows the ``REPRO_SANITIZE`` env knob.
+        device: where the ``fleet_vec`` engine's cap=1 scan runs when it is
+            on (``REPRO_FLEET_VEC_SCAN=1``): ``cuda`` unless ``"cpu"``.
 
     Returns:
         A :class:`Result`; ``result.raw[method]`` holds the engine-native
@@ -617,7 +622,7 @@ def run(scenario: Scenario, *, smoke: bool = False,
             )
         if scn.engine == "fleet_vec":
             from repro_torch.core.fleet_vec import simulate_fleet_vec
-            impl = simulate_fleet_vec
+            impl = functools.partial(simulate_fleet_vec, device=device)
         else:
             impl = _simulate_fleet_impl
         for m in scn.methods:

@@ -26,7 +26,9 @@
 // bank conflicts. The online softmax runs on the accumulator fragments in
 // registers (row max across the 4 lanes of a quad); P is rounded to bf16 in
 // registers and fed back as the A operand of P.V, with V as the B operand
-// through ldmatrix.trans. Causal q tiles are launched heaviest first. The
+// through ldmatrix.trans. Causal q tiles are launched heaviest first. When a
+// gradient will be taken it also writes each row's log-sum-exp in fp32, from
+// the row max (kept in log2 units) and the quad's summed denominator. The
 // card's full bf16 rate needs wgmma on TMA-fed swizzled tiles; that is the
 // next design for this route.
 //
@@ -56,6 +58,7 @@ namespace {
 
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // the head dim a shared-memory tile is laid out for: D rounded up to 16
 __host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
@@ -333,7 +336,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int val
 template <int D, int TBQ, int TBK, int MINB>
 __global__ void __launch_bounds__(TcCfg<D, TBQ, TBK>::kThreads, MINB)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int H, int group, int Sq,
+                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                int H, int group, int Sq,
                 int Sk, float scale, int causal, int has_window, int window, int has_softcap,
                 float softcap, int skip_tiles, int heavy_first) {
   using C = TcCfg<D, TBQ, TBK>;
@@ -535,7 +539,17 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // normalize, stage this warp's 16 rows in its own rows of Qs, store 16 B a lane
   float inv[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) inv[i] = 1.f / fmaxf(quad_sum(l_r[i]), 1e-30f);
+  for (int i = 0; i < 2; ++i) {
+    const float l_row = quad_sum(l_r[i]);
+    inv[i] = 1.f / fmaxf(l_row, 1e-30f);
+    // the row's log-sum-exp for the backward (null: no gradient will be
+    // taken), as the cuda_core route writes it: m (here m2 = m * log2(e)) plus
+    // log(l); a row whose keys are all masked keeps m2 = NEG_INF * log2(e),
+    // and its lse rounds to about NEG_INF, which the backward reads as such
+    const int row = i == 0 ? r0 : r1;
+    if (lse != nullptr && tq == 0 && row < Sq)
+      lse[static_cast<size_t>(bh) * Sq + row] = m_r[i] * kLn2 + logf(l_row);
+  }
   bf16* Ow = Qs + warp * 16 * kStride;
   __syncwarp();
 #pragma unroll
@@ -582,7 +596,7 @@ cudaError_t allow_smem(F* kernel, int bytes, std::atomic<int> (&allowed)[64]) {
 struct Args {
   const void *q, *k, *v;
   void* o;
-  float* lse;                          // fp32 route only; null: not written
+  float* lse;                          // (B,H,Sq) fp32; null: not written
   int B, H, Hkv, Sq, Sk;
   float scale;
   int causal, has_window, window, has_softcap;
@@ -626,7 +640,7 @@ int launch_tc(const Args& a, int block_q, int block_k) {
   dim3 grid(a.B * a.H, (a.Sq + TBQ - 1) / TBQ);
   flash_tc_kernel<D, TBQ, TBK, MINB><<<grid, C::kThreads, C::kSmem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.H, a.H / a.Hkv, a.Sq,
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.H, a.H / a.Hkv, a.Sq,
       a.Sk, a.scale, a.causal, a.has_window, a.window, a.has_softcap, a.softcap,
       skip_rule(a), a.heavy_first);
   return static_cast<int>(cudaGetLastError());
@@ -638,9 +652,9 @@ int launch_tc(const Args& a, int block_q, int block_k) {
 // heavy_first (launch the q tile with the most keys first) come from the
 // wrapper's plan and must match a compiled tiling. q (B,H,Sq,D), k/v
 // (B,Hkv,Sk,D), o like q; all contiguous, 16-byte aligned for tc_bf16. lse
-// (B,H,Sq) fp32 receives each row's log-sum-exp for the backward: cuda_core
-// only, null when no gradient will be taken. Returns cudaGetLastError() after
-// the launch.
+// (B,H,Sq) fp32 receives each row's log-sum-exp for the backward on either
+// route, null when no gradient will be taken. Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int H, int Hkv, int Sq, int Sk,
                                       int D, int route, int block_q, int block_k,
@@ -648,7 +662,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int has_window, int window, int has_softcap,
                                       float softcap, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
-  if (lse != nullptr && route != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Sq, Sk, scale, causal,
                has_window, window, has_softcap, softcap, heavy_first,
                static_cast<cudaStream_t>(stream)};
@@ -673,7 +686,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 }
 
 // ---------------------------------------------------------------------------------
-// backward (fp32, CUDA cores): FlashAttention-2's algorithm
+// backward (fp32 or bf16 in, fp32 arithmetic on CUDA cores): FlashAttention-2's
+// algorithm
 // ---------------------------------------------------------------------------------
 //
 // No TPU kernel has a backward: the reference trains through jnp attention
@@ -700,7 +714,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // stride; thread (ty, tx) owns rows ty*R.. of its block's resident tile
 // (R = T/16) and columns tx + 16j of the streamed one. Head dims that are not
 // a multiple of 16 use DP = pad16(D) output columns, the pad ones never read
-// or written. The card's tensor cores are left for a later design.
+// or written. The kernels are templated on the element type E of q, k, v, O,
+// dO and of dQ, dK, dV: bf16 is widened to fp32 as it is loaded into the fp32
+// shared tiles, every sum (and D) runs in fp32, and the gradients are rounded
+// to E once, as they are stored. lse and D stay fp32. The card's tensor cores
+// are left for a later design.
 
 namespace {
 
@@ -714,6 +732,15 @@ struct BwdCfg {
   static constexpr int PS = T + 1;
   static constexpr size_t kSmem = (4 * T * RS + 2 * T * PS + 2 * T) * sizeof(float);
 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename E>
+__device__ __forceinline__ E from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 struct BwdMask {
   int Sq, Sk, causal, has_window, window, has_softcap;
@@ -744,38 +771,38 @@ __device__ __forceinline__ void bwd_entry(const BwdMask& m, int qi, int kj, floa
   if (vis) ds = p * (dov - d_i) * (m.has_softcap ? 1.f - t * t : 1.f);
 }
 
-// rows [r0, r0 + T) of a (rows, D) fp32 matrix into a shared tile of stride
-// RS; rows past `rows` are zeros
-template <int D, int T>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
+// rows [r0, r0 + T) of a (rows, D) matrix of E into a shared fp32 tile of
+// stride RS; rows past `rows` are zeros
+template <int D, int T, typename E>
+__device__ __forceinline__ void load_rows(float* dst, const E* __restrict__ src, int r0,
                                           int rows, int tid) {
   for (int i = tid; i < T * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = (r0 + r < rows) ? src[static_cast<size_t>(r0) * D + i] : 0.f;
+    dst[r * (D + 1) + c] = (r0 + r < rows) ? to_f(src[static_cast<size_t>(r0) * D + i]) : 0.f;
   }
 }
 
-__global__ void flash_bwd_dot_kernel(const float* __restrict__ o,
-                                     const float* __restrict__ dout,
+template <typename E>
+__global__ void flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dout,
                                      float* __restrict__ delta, int rows, int D) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const float* a = o + static_cast<size_t>(row) * D;
-  const float* b = dout + static_cast<size_t>(row) * D;
+  const E* a = o + static_cast<size_t>(row) * D;
+  const E* b = dout + static_cast<size_t>(row) * D;
   float s = 0.f;
-  for (int c = lane; c < D; c += 32) s = fmaf(a[c], b[c], s);
+  for (int c = lane; c < D; c += 32) s = fmaf(to_f(a[c]), to_f(b[c]), s);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v, const E* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int H, int group,
+                      E* __restrict__ dk, E* __restrict__ dv, int H, int group,
                       BwdMask mk, int skip_tiles, int heavy_first) {
   using C = BwdCfg<D>;
   constexpr int T = C::T, R = C::R, RS = C::RS, PS = C::PS, CPT = C::CPT;
@@ -797,8 +824,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int Sq = mk.Sq, Sk = mk.Sk;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t kv_off = static_cast<size_t>(bkv) * Sk * D;
-  load_rows<D, T>(Ks, k + kv_off, k0, Sk, tid);
-  load_rows<D, T>(Vs, v + kv_off, k0, Sk, tid);
+  load_rows<D, T, E>(Ks, k + kv_off, k0, Sk, tid);
+  load_rows<D, T, E>(Vs, v + kv_off, k0, Sk, tid);
 
   float acc_k[R][CPT], acc_v[R][CPT];
 #pragma unroll
@@ -813,12 +840,12 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   for (int hq = 0; hq < group; ++hq) {
     const size_t bh = static_cast<size_t>(b) * H + hk * group + hq;
-    const float* qp = q + bh * Sq * D;
-    const float* op = dout + bh * Sq * D;
+    const E* qp = q + bh * Sq * D;
+    const E* op = dout + bh * Sq * D;
     for (int q0 = (q_lo / T) * T; q0 < q_hi; q0 += T) {
       __syncthreads();                   // the previous tile's readers are done
-      load_rows<D, T>(Qs, qp, q0, Sq, tid);
-      load_rows<D, T>(Os, op, q0, Sq, tid);
+      load_rows<D, T, E>(Qs, qp, q0, Sq, tid);
+      load_rows<D, T, E>(Os, op, q0, Sq, tid);
       for (int r = tid; r < T; r += kThreads) {
         const bool in = q0 + r < Sq;
         Ls[r] = in ? lse[bh * Sq + q0 + r] : 0.f;
@@ -896,19 +923,19 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < CPT; ++c) {
       const int col = tx + 16 * c;
       if (col < D) {
-        dk[row + col] = acc_k[i][c] * mk.scale;
-        dv[row + col] = acc_v[i][c];
+        dk[row + col] = from_f<E>(acc_k[i][c] * mk.scale);
+        dv[row + col] = from_f<E>(acc_v[i][c]);
       }
     }
   }
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, const E* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int H, int group, BwdMask mk, int skip_tiles,
+                    E* __restrict__ dq, int H, int group, BwdMask mk, int skip_tiles,
                     int heavy_first) {
   using C = BwdCfg<D>;
   constexpr int T = C::T, R = C::R, RS = C::RS, PS = C::PS, CPT = C::CPT;
@@ -930,8 +957,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t q_off = static_cast<size_t>(bh) * Sq * D;
   const size_t kv_off = static_cast<size_t>(b * Hkv + h / group) * Sk * D;
-  load_rows<D, T>(Qs, q + q_off, q0, Sq, tid);
-  load_rows<D, T>(Os, dout + q_off, q0, Sq, tid);
+  load_rows<D, T, E>(Qs, q + q_off, q0, Sq, tid);
+  load_rows<D, T, E>(Os, dout + q_off, q0, Sq, tid);
   for (int r = tid; r < T; r += kThreads) {
     const bool in = q0 + r < Sq;
     Ls[r] = in ? lse[static_cast<size_t>(bh) * Sq + q0 + r] : 0.f;
@@ -951,8 +978,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   for (int k0 = (k_lo / T) * T; k0 < k_hi; k0 += T) {
     __syncthreads();
-    load_rows<D, T>(Ks, k + kv_off, k0, Sk, tid);
-    load_rows<D, T>(Vs, v + kv_off, k0, Sk, tid);
+    load_rows<D, T, E>(Ks, k + kv_off, k0, Sk, tid);
+    load_rows<D, T, E>(Vs, v + kv_off, k0, Sk, tid);
     __syncthreads();
 
     float qk[R][R], dov[R][R];           // queries ty*R+i x keys tx+16j
@@ -1012,75 +1039,84 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int qi = q0 + ty * R + i;
     if (qi >= Sq) continue;
-    float* row = dq + q_off + static_cast<size_t>(qi) * D;
+    E* row = dq + q_off + static_cast<size_t>(qi) * D;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) row[col] = acc[i][c] * mk.scale;
+      if (col < D) row[col] = from_f<E>(acc[i][c] * mk.scale);
     }
   }
 }
 
-template <int D>
-int launch_bwd(const Args& a, const float* dout, const float* lse, float* delta, float* dq,
-               float* dk, float* dv) {
+template <int D, typename E>
+int launch_bwd(const Args& a, const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv) {
   using C = BwdCfg<D>;
   static std::atomic<int> allowed_kv[64], allowed_q[64];
-  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, static_cast<int>(C::kSmem), allowed_kv);
+  cudaError_t err =
+      allow_smem(flash_bwd_dkdv_kernel<D, E>, static_cast<int>(C::kSmem), allowed_kv);
   if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dq_kernel<D>, static_cast<int>(C::kSmem), allowed_q);
+    err = allow_smem(flash_bwd_dq_kernel<D, E>, static_cast<int>(C::kSmem), allowed_q);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = a.B * a.H * a.Sq;
-  flash_bwd_dot_kernel<<<(rows + 7) / 8, 256, 0, a.stream>>>(
-      static_cast<const float*>(a.o), dout, delta, rows, D);
+  const E* g = static_cast<const E*>(dout);
+  flash_bwd_dot_kernel<E><<<(rows + 7) / 8, 256, 0, a.stream>>>(
+      static_cast<const E*>(a.o), g, delta, rows, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const BwdMask mk{a.Sq, a.Sk, a.causal, a.has_window, a.window, a.has_softcap, a.scale,
                    a.softcap};
   const int group = a.H / a.Hkv;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
+  const E* q = static_cast<const E*>(a.q);
+  const E* k = static_cast<const E*>(a.k);
+  const E* v = static_cast<const E*>(a.v);
   // causal: the key tiles with the most queries are the first ones, the q
   // tiles with the most keys the last ones; each grid starts with its heaviest
   dim3 grid_kv(a.B * a.Hkv, (a.Sk + C::T - 1) / C::T);
-  flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, C::kSmem, a.stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, a.H, group, mk, skip_rule(a), 0);
+  flash_bwd_dkdv_kernel<D, E><<<grid_kv, kThreads, C::kSmem, a.stream>>>(
+      q, k, v, g, lse, delta, static_cast<E*>(dk), static_cast<E*>(dv), a.H, group, mk,
+      skip_rule(a), 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid_q(a.B * a.H, (a.Sq + C::T - 1) / C::T);
-  flash_bwd_dq_kernel<D><<<grid_q, kThreads, C::kSmem, a.stream>>>(
-      q, k, v, dout, lse, delta, dq, a.H, group, mk, skip_rule(a), a.heavy_first);
+  flash_bwd_dq_kernel<D, E><<<grid_q, kThreads, C::kSmem, a.stream>>>(
+      q, k, v, g, lse, delta, static_cast<E*>(dq), a.H, group, mk, skip_rule(a),
+      a.heavy_first);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_bwd_d(const Args& a, int D, const void* dout, const float* lse, float* delta,
+                 void* dq, void* dk, void* dv) {
+  switch (D) {
+    case 32: return launch_bwd<32, E>(a, dout, lse, delta, dq, dk, dv);
+    case 64: return launch_bwd<64, E>(a, dout, lse, delta, dq, dk, dv);
+    case 120: return launch_bwd<120, E>(a, dout, lse, delta, dq, dk, dv);
+    case 128: return launch_bwd<128, E>(a, dout, lse, delta, dq, dk, dv);
+    case 256: return launch_bwd<256, E>(a, dout, lse, delta, dq, dk, dv);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// The backward of the fp32 route. q, o, dout, dq (B,H,Sq,D); k, v, dk, dv
-// (B,Hkv,Sk,D); lse and delta (scratch for D = rowsum(dO * O)) (B,H,Sq); all
-// fp32 and contiguous. Three launches on `stream`: the rowsum, dK/dV, dQ.
-// Returns the first CUDA error of a launch, else 0.
+// The backward of either route. route: 0 = float32, 1 = bfloat16, the type of
+// q, k, v, o, dout and of dq, dk, dv. q, o, dout, dq (B,H,Sq,D); k, v, dk, dv
+// (B,Hkv,Sk,D); lse and delta (scratch for D = rowsum(dO * O)) (B,H,Sq) fp32;
+// all contiguous. Three launches on `stream`: the rowsum, dK/dV, dQ. Returns
+// the first CUDA error of a launch, else 0.
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int Hkv,
-    int Sq, int Sk, int D, int heavy_first, float scale, int causal, int has_window,
-    int window, int has_softcap, float softcap, void* stream) {
+    int Sq, int Sk, int D, int route, int heavy_first, float scale, int causal,
+    int has_window, int window, int has_softcap, float softcap, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
   const Args a{q, k, v, const_cast<void*>(o), nullptr, B, H, Hkv, Sq, Sk, scale, causal,
                has_window, window, has_softcap, softcap, heavy_first,
                static_cast<cudaStream_t>(stream)};
-  const float* g = static_cast<const float*>(dout);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  float* gq = static_cast<float*>(dq);
-  float* gk = static_cast<float*>(dk);
-  float* gv = static_cast<float*>(dv);
-  switch (D) {
-    case 32: return launch_bwd<32>(a, g, l, dl, gq, gk, gv);
-    case 64: return launch_bwd<64>(a, g, l, dl, gq, gk, gv);
-    case 120: return launch_bwd<120>(a, g, l, dl, gq, gk, gv);
-    case 128: return launch_bwd<128>(a, g, l, dl, gq, gk, gv);
-    case 256: return launch_bwd<256>(a, g, l, dl, gq, gk, gv);
-  }
+  if (route == 0) return launch_bwd_d<float>(a, D, dout, l, dl, dq, dk, dv);
+  if (route == 1) return launch_bwd_d<bf16>(a, D, dout, l, dl, dq, dk, dv);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,10 +18,11 @@ hides from a whole q tile, and launch causal q tiles heaviest first.
 The kernel is the PyTorch op ``repro_torch::flash_attention``: the plain
 version on the CPU, the kernel on CUDA, a fake implementation for
 ``torch.export`` and an autograd formula. When a gradient will be taken the
-fp32 forward also writes each row's log-sum-exp, and the backward runs
-FlashAttention-2's algorithm in CUDA (:func:`flash_attention_backward`,
-fp32 only, itself the op ``repro_torch::flash_attention_backward`` with a
-fake); a bf16 input that needs a gradient raises on the card.
+forward (either route) also writes each row's log-sum-exp in fp32, and the
+backward runs FlashAttention-2's algorithm in CUDA
+(:func:`flash_attention_backward`, itself the op
+``repro_torch::flash_attention_backward`` with a fake): fp32 or bf16 in and
+out, fp32 arithmetic on CUDA cores, bf16 widened as it is loaded.
 """
 from __future__ import annotations
 
@@ -116,7 +117,9 @@ def flash_attention_backward_plain(q, k, v, dout, *, causal=True, window=None,
                                    softcap=None, scale=None
                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``: ``torch.autograd.grad`` through
-    :func:`flash_attention_plain` at the same inputs."""
+    :func:`flash_attention_plain` at the same inputs. On bf16 inputs every
+    product runs in fp32 and each gradient is rounded to bf16 once, as the
+    kernel's are."""
     with torch.enable_grad():
         qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = flash_attention_plain(*qkv, causal=causal, window=window, softcap=softcap,
@@ -155,7 +158,7 @@ def _launch_fn():
 @functools.lru_cache(maxsize=None)
 def _backward_fn():
     fn = library("flash_attention").flash_attention_backward_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -181,8 +184,6 @@ def _flash_cuda(q, k, v, causal, window, softcap, scale, with_lse):
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     p = plan(q.dtype, d, Sq, causal)
-    if with_lse and p.route != "cuda_core":
-        raise TypeError("the flash_attention backward on the card takes float32 only")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
     if p.route == "tc_bf16" and any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -243,8 +244,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention.launches_by_route`` and per pass (``forward``, or
     ``recompute`` inside a backward) in ``flash_attention.launches_by_pass``.
     Differentiable: when grad mode is on and an input requires a gradient,
-    the kernel also writes the rows' log-sum-exp for the backward, which
-    takes float32 only on the card.
+    the kernel also writes the rows' log-sum-exp for the backward.
     """
     _check_args(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
@@ -264,18 +264,20 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors run :func:`flash_attention_backward_plain` (``out`` and
     ``lse`` unused); other tensors go through the PyTorch op
     ``repro_torch::flash_attention_backward``: on CUDA it launches the
-    backward kernels (fp32 only: a bf16 input raises ``TypeError``), counted
-    in ``flash_attention_backward.launches``; on meta and fake tensors its
-    fake implementation gives the shapes.
+    backward kernels (fp32 or bf16; the gradients in the inputs' dtype),
+    counted in ``flash_attention_backward.launches``; on meta and fake
+    tensors its fake implementation gives the shapes.
     """
     _check_args(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, dout, causal=causal, window=window,
                                               softcap=softcap, scale=scale)
     B, H, Sq, d = q.shape
-    if q.dtype != torch.float32:
-        raise TypeError(f"the flash_attention backward on the card takes float32 only, "
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the flash_attention backward takes float32 or bfloat16, "
                         f"got {q.dtype}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"out and dout must be {q.dtype}, got {out.dtype}, {dout.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dim in {HEAD_DIMS}, got {d}")
     if tuple(lse.shape) != (B, H, Sq):
@@ -305,7 +307,8 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
         status = _backward_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Hkv, Sq, Sk, d, int(causal), float(scale), int(causal),
+            B, H, Hkv, Sq, Sk, d, ROUTES.index(plan(q.dtype, d, Sq, causal).route),
+            int(causal), float(scale), int(causal),
             int(window is not None), int(window) if window is not None else 0,
             int(softcap is not None), float(softcap) if softcap is not None else 0.0,
             stream)

@@ -118,16 +118,16 @@ def recurrence_work(a):
 
 
 def flash_backward_work(q, k, causal, window):
-    """(bytes, operations) of one flash_attention backward in fp32: q, k, v,
-    the output, its gradient and the rows' lse read once, dq, dk, dv written
-    once; five products (S, dP, dV, dS.K, dS^T.Q) of 2*d operations per
-    unmasked (query, key) pair and head."""
+    """(bytes, operations) of one flash_attention backward in the inputs'
+    dtype (fp32 or bf16): q, k, v, the output and its gradient and the rows'
+    lse (fp32) read once, dq, dk, dv written once; five products (S, dP, dV,
+    dS.K, dS^T.Q) of 2*d operations per unmasked (query, key) pair and head."""
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     lo = [max(0, i - window + 1) if window is not None else 0 for i in range(Sq)]
     hi = [min(i + 1, Sk) if causal else Sk for i in range(Sq)]
     pairs = sum(max(0, h - l) for l, h in zip(lo, hi))
-    moved = 4 * (3 * B * H * Sq * d + 4 * B * Hkv * Sk * d + B * H * Sq * d + B * H * Sq)
+    moved = q.element_size() * (4 * B * H * Sq * d + 4 * B * Hkv * Sk * d) + 4 * B * H * Sq
     return moved, 10 * d * pairs * B * H
 
 

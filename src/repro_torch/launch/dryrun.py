@@ -10,20 +10,21 @@ stands for all; its collectives are counted, not run
 (``sharding.dry_collectives``), and ``launch/cost.py`` counts its FLOPs,
 bytes and peak live bytes. A cell fails here where it would fail on the
 card for its shapes: the ops' fake implementations refuse what the kernels
-refuse (``decode_attention``'s uncompiled (head dim, group) pairs, a bf16
-flash backward).
+refuse (``decode_attention``'s uncompiled (head dim, group) pairs).
 
-  train_4k      -> train_step   (fwd + bwd + AdamW; fp32, as the port trains:
-                                 the flash backward on the card takes fp32 only)
+  train_4k      -> train_step   (bf16; fwd + bwd + AdamW with ZeRO-1 moments,
+                                 as the reference traces it)
   prefill_32k   -> prefill_step (bf16; builds the decode state)
   decode_32k    -> serve_step   (bf16; 1 new token against a seq_len cache)
   long_500k     -> serve_step   (sub-quadratic archs only; batch=1 splits the
                                  cache's positions over 'data')
 
-The parameters, the AdamW moments, the batch and the decode state are the
-rank's shards, as the port's training and serving hold them: the moments are
-the parameters' shards (the reference's dry run also cuts them over 'data',
-ZeRO-1, which the port's optimizer does not do).
+The parameters, the batch and the decode state are the rank's shards, as the
+port's training and serving hold them. A train cell's AdamW moments (fp32)
+are the rank's ZeRO-1 slices (``Parallel.zero1``, ``sharding.zero1_cuts``):
+each leaf's shard cut over 'data' on its first free, divisible dim, the
+reference's rule, so a train cell's arguments are the reference's bytes per
+device; the step gathers the updated slices with one more ``all_reduce``.
 
 Each record keeps the reference's keys: ``lower_s`` (building the shards'
 shapes) and ``compile_s`` (the trace), ``cost_raw`` and ``hlo_walk`` (the
@@ -41,6 +42,7 @@ Usage:
   python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun_torch
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -114,18 +116,19 @@ def build_cell(cfg, shape, par, device="meta"):
     the reference skips."""
     import torch
 
-    from repro_torch.models.api import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.models.api import (init_opt_state, make_prefill_step, make_serve_step,
+                                        make_train_step)
     from repro_torch.models.transformer import init_decode_state
-    from repro_torch.optim import adamw_init
 
     if shape.name == "long_500k" and not cfg.supports_long_context:
         raise SkipCell(f"{cfg.name} is pure full-attention — long_500k skipped "
                        "(DESIGN.md §4)")
-    dtype = torch.float32 if shape.kind == "train" else torch.bfloat16
+    dtype = torch.bfloat16
     params, _ = shard_params(cfg, dtype, par, device)
     parts = {"params": _bytes(params)}
     if shape.kind == "train":
-        batch, opt = _batch(cfg, shape, par, device), adamw_init(params)
+        par = dataclasses.replace(par, zero1=True)
+        batch, opt = _batch(cfg, shape, par, device), init_opt_state(params, cfg, par)
         parts.update(opt_state=_bytes(opt), batch=_bytes(batch))
         fn = make_train_step(cfg, remat="unit", par=par)
         args = (params, opt, batch, 0)

@@ -33,14 +33,16 @@ from repro_torch.models.sharding import (
     Parallel,
     all_reduce,
     g,
+    gather_cuts,
     gather_vocab,
     param_pspecs,
     sharded_mask,
     tp_of,
     vocab_argmax,
+    zero1_cuts,
 )
 from repro_torch.models.transformer import decode_step, forward, init_decode_state, init_params
-from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
 
 
 def chunked_cross_entropy(embed_params: dict, feats: torch.Tensor, targets: torch.Tensor,
@@ -148,7 +150,11 @@ def make_train_step(cfg: ArchConfig, *, adamw: AdamWConfig = AdamWConfig(),
     With ``par`` the parameters and moments are this rank's shards and the
     batch its rows of the global batch, which must split over ``data``; the
     gradients are summed over ``data`` in one ``all_reduce`` of one flat
-    buffer, and the metrics are the global batch's."""
+    buffer, and the metrics are the global batch's. With ``par.zero1`` the
+    moments are this ``data`` rank's slices (:func:`init_opt_state`): each
+    rank updates its slice of the parameters and one more ``all_reduce``
+    over ``data`` gathers them (``sharding.gather_cuts``); parameters, loss
+    and ``grad_norm`` are bitwise those of the step without it."""
     def train_step(params, opt_state, batch, step):
         loss, parts, grads = loss_and_grads(params, batch, cfg, remat=remat,
                                             rec_chunk=rec_chunk, par=par)
@@ -156,6 +162,9 @@ def make_train_step(cfg: ArchConfig, *, adamw: AdamWConfig = AdamWConfig(),
         if par is not None:
             shard = dict(sharded=sharded_mask(param_pspecs(cfg, params, par.tp)),
                          reduce=lambda t: all_reduce(t, par.model_group))
+            if par.zero1:
+                shard.update(cuts=zero1_cuts(cfg, params, par),
+                             gather=lambda ts, cuts: gather_cuts(ts, cuts, par))
         lr = cosine_schedule(step, peak_lr=peak_lr, warmup_steps=warmup_steps,
                              total_steps=total_steps).to(loss.device)
         params, opt_state, om = adamw_update(grads, opt_state, params, lr, adamw, **shard)
@@ -164,6 +173,13 @@ def make_train_step(cfg: ArchConfig, *, adamw: AdamWConfig = AdamWConfig(),
         return params, opt_state, metrics
 
     return train_step
+
+
+def init_opt_state(params, cfg: ArchConfig, par: Optional[Parallel] = None) -> dict:
+    """The AdamW state the train step of ``cfg`` on ``par`` takes: the
+    moments whole, or under ``par.zero1`` this ``data`` rank's slices."""
+    cuts = zero1_cuts(cfg, params, par) if par is not None and par.zero1 else None
+    return adamw_init(params, cuts)
 
 
 def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
@@ -251,6 +267,6 @@ def make_serve_step_with_logits(cfg: ArchConfig, par: Optional[Parallel] = None
 
 __all__ = [
     "loss_fn", "loss_and_grads", "chunked_cross_entropy", "make_train_step", "make_prefill_step",
-    "make_serve_step", "make_serve_step_with_logits", "init_params",
+    "make_serve_step", "make_serve_step_with_logits", "init_params", "init_opt_state",
     "init_decode_state", "frontend_embeds_from_batch", "padded_vocab",
 ]

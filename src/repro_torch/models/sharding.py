@@ -46,6 +46,11 @@ slices of the x half and of the z half (the *logical* shard), so a rank's
 channels line up with its ``conv_w``, ``dt_proj`` and ``out_proj`` rows;
 :func:`shard_tree` and :func:`gather_tree` know the two halves, the spec
 stays the reference's.
+
+ZeRO-1 (``Parallel.zero1``, the reference's dry-run layout of the AdamW
+moments): :func:`zero1_cuts` picks each leaf's slice over ``data`` by the
+reference's rule, and :func:`gather_cuts` puts the updated slices together
+with one ``all_reduce`` of an integer view, which keeps the bits.
 """
 from __future__ import annotations
 
@@ -355,7 +360,9 @@ class Parallel:
     ``dp_axes`` or a decode cache's positions are. ``groups`` maps a set of
     axis names to its process group (:func:`mesh_groups`); a placeholder
     (:meth:`placeholder`) has none and runs its collectives under
-    :func:`dry_collectives` only.
+    :func:`dry_collectives` only. ``zero1`` asks the train step for ZeRO-1:
+    each ``data`` rank holds and updates only its slice of the AdamW moments
+    (:func:`zero1_cuts`).
     """
     cfg: ArchConfig
     axes: Tuple[str, ...]
@@ -364,6 +371,7 @@ class Parallel:
     groups: Dict[frozenset, Any] = dataclasses.field(default_factory=dict, compare=False,
                                                      hash=False, repr=False)
     batch: Optional[int] = None
+    zero1: bool = False
 
     @classmethod
     def of(cls, mesh, cfg: ArchConfig) -> "Parallel":
@@ -700,6 +708,56 @@ def sharded_mask(specs: Any) -> list:
     that is not is the same on every model rank.)"""
     return [any(s == "model" or (isinstance(s, tuple) and "model" in s) for s in spec)
             for spec in leaves(specs)]
+
+
+def zero1_cuts(cfg: ArchConfig, params: Any, par: Parallel) -> list:
+    """Per parameter leaf (in flatten order): ``(dim, start, length)`` of this
+    rank's slice of the leaf's AdamW moments under ZeRO-1, or None where the
+    leaf keeps whole moments. The reference's rule (its dry run's ``zero1``):
+    the first dimension of the leaf's shard that is not split over ``model``
+    and whose size is a multiple of the ``data`` axis' size and at least that
+    size is cut over ``data`` (``pod``, where there is one, keeps copies)."""
+    n = par.sizes[par.axes.index("data")]
+    if n == 1:
+        return [None] * len(leaves(params))
+    _, index = par.block("data")
+    cuts = []
+    for leaf, spec in zip(leaves(params), leaves(param_pspecs(cfg, params, par.tp))):
+        cut = None
+        for d, (size, s) in enumerate(zip(leaf.shape, _fit(spec, leaf.ndim))):
+            if s is None and size % n == 0 and size >= n:
+                cut = (d, index * (size // n), size // n)
+                break
+        cuts.append(cut)
+    return cuts
+
+
+def gather_cuts(tensors: list, cuts: list, par: Parallel) -> None:
+    """Every ``data`` rank's slice (``cuts``, as :func:`zero1_cuts` gives
+    them) of each tensor, written into every rank's tensor in place: one
+    ``all_reduce`` over ``data`` of a zero-filled buffer that holds this
+    rank's slices at their places, summed as int32. Each byte is nonzero on
+    one rank at most, so the integer sum puts the bits together exactly in
+    any dtype (gloo and NCCL both sum int32)."""
+    items = [(t, c) for t, c in zip(tensors, cuts) if c is not None]
+    if not items:
+        return
+    spans, total = [], 0
+    for t, _ in items:
+        nbytes = t.numel() * t.element_size()
+        spans.append((total, nbytes))
+        total += -(-nbytes // 4) * 4
+    buf = torch.zeros(total // 4, dtype=torch.int32, device=items[0][0].device)
+    raw = buf.view(torch.uint8)
+
+    def region(t, o, nbytes):
+        return raw[o:o + nbytes].view(t.dtype).view(t.shape)
+
+    for (t, (d, s, n)), (o, nbytes) in zip(items, spans):
+        region(t, o, nbytes).narrow(d, s, n).copy_(t.narrow(d, s, n))
+    all_reduce(buf, par.group("data"))
+    for (t, _), (o, nbytes) in zip(items, spans):
+        t.copy_(region(t, o, nbytes))
 
 
 def broadcast_object(obj: Any, src: int = 0) -> Any:

@@ -8,7 +8,11 @@ The reference returns new trees; here the parameters, ``mu`` and ``nu`` are
 written in place (under ``torch.no_grad()``) to save a copy of each, and the
 returned trees hold the same tensors. Under tensor parallelism the moments
 are sharded like the parameters, and the clipping norm sums a sharded leaf's
-squares over the model ranks and counts a replicated leaf once.
+squares over the model ranks and counts a replicated leaf once. Under ZeRO-1
+(``cuts``) a leaf's moments are one slice of it, the step updates only that
+slice of the parameter, and ``gather`` puts the slices of every rank
+together; the update is elementwise, so the parameters come out bitwise as
+without the cut.
 """
 from __future__ import annotations
 
@@ -29,14 +33,24 @@ class AdamWConfig:
     clip_norm: float = 1.0
 
 
-def adamw_init(params: Any) -> Dict[str, Any]:
-    """Zero moments (fp32, on each parameter's device) and a zero int32 count."""
+Cut = Optional[Tuple[int, int, int]]      # (dim, start, length) of a leaf's slice
+
+
+def _slice(t: torch.Tensor, cut: Cut) -> torch.Tensor:
+    return t if cut is None else t.narrow(*cut)
+
+
+def adamw_init(params: Any, cuts: Optional[Sequence[Cut]] = None) -> Dict[str, Any]:
+    """Zero moments (fp32, on each parameter's device) and a zero int32 count.
+    With ``cuts`` (per leaf, ``sharding.zero1_cuts``) each leaf's moments
+    have the shape of its slice."""
     treedef = TreeDef.of(params)
     flat = leaves(params)
+    cuts = cuts or [None] * len(flat)
 
     def zeros():
-        return treedef.unflatten([torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device) for p in flat])
+        return treedef.unflatten([torch.zeros(_slice(p, c).shape, dtype=torch.float32,
+                                              device=p.device) for p, c in zip(flat, cuts)])
 
     device = flat[0].device if flat else None
     return {"mu": zeros(), "nu": zeros(),
@@ -65,24 +79,33 @@ def global_norm(tree: Any, sharded: Optional[Sequence[bool]] = None,
 def adamw_update(grads: Any, opt_state: Dict[str, Any], params: Any, lr,
                  cfg: AdamWConfig = AdamWConfig(), *,
                  sharded: Optional[Sequence[bool]] = None,
-                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 cuts: Optional[Sequence[Cut]] = None,
+                 gather: Optional[Callable[[list, Sequence[Cut]], None]] = None
                  ) -> Tuple[Any, Dict[str, Any], dict]:
     """Returns ``(params, opt_state, metrics)``; ``params``, ``mu`` and ``nu``
     are updated in place. ``grads`` has the parameters' structure; ``lr`` is
     a float or an fp32 scalar tensor; ``sharded`` and ``reduce`` as in
-    :func:`global_norm`."""
+    :func:`global_norm`. With ``cuts`` (ZeRO-1, as in :func:`adamw_init`)
+    only each leaf's slice is updated, and then ``gather(leaves, cuts)``
+    writes every rank's slices into the leaves."""
     gnorm = global_norm(grads, sharded, reduce)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     count = opt_state["count"] + 1
     c1 = 1.0 - cfg.b1 ** count.float()
     c2 = 1.0 - cfg.b2 ** count.float()
-    for g, mu, nu, p in zip(leaves(grads), leaves(opt_state["mu"]),
-                            leaves(opt_state["nu"]), leaves(params)):
+    flat = leaves(params)
+    cuts = cuts or [None] * len(flat)
+    for g, mu, nu, p, cut in zip(leaves(grads), leaves(opt_state["mu"]),
+                                 leaves(opt_state["nu"]), flat, cuts):
+        g, p = _slice(g, cut), _slice(p, cut)
         g = g.float() * scale
         mu.copy_(cfg.b1 * mu + (1 - cfg.b1) * g)
         nu.copy_(cfg.b2 * nu + (1 - cfg.b2) * torch.square(g))
         step = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
         step = step + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * step).to(p.dtype))
+    if any(c is not None for c in cuts):
+        gather(flat, cuts)
     metrics = {"grad_norm": gnorm, "clip_scale": scale}
     return params, {"mu": opt_state["mu"], "nu": opt_state["nu"], "count": count}, metrics

@@ -299,3 +299,70 @@ def reference_lax_scan(monkeypatch):
     fn = fleet_vec._get_scan_fn()
     assert fn is not None, "the reference's lax.scan path did not build"
     return fn
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits, as integers of its width (bitwise comparison)."""
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def zero1_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of tests/test_torch_train.py's ZeRO-1 check: the reduced
+    config ``job['arch']`` (``job['overrides']``) in each dtype of
+    ``job['dtypes']``, parameters drawn from seed 0 and cut to this rank's
+    shards on the ``job['mesh']`` mesh, then ``job['steps']`` train steps on
+    ``job['batch']`` (numpy tokens, split over the data axes) with whole
+    moments and, from the same start, with ``Parallel.zero1``. Per dtype:
+    whether parameters, losses and ``grad_norm`` agree bitwise, both runs'
+    moment bytes, the ZeRO-1 cuts, and the all_reduce calls a step adds."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.tree import TreeDef, leaves
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.api import init_opt_state, make_train_step
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_reduced(job["arch"], **job["overrides"])
+    *dps, tp = job["mesh"]
+    par = sh.Parallel.of(make_local_mesh(tp, "cpu", pods=dps[0] if len(dps) == 2 else 1),
+                         cfg)
+    tokens = torch.from_numpy(job["batch"])
+    n = tokens.shape[0] // par.dp
+    batch = {"tokens": tokens[par.dp_rank * n:(par.dp_rank + 1) * n]}
+    out = {}
+    for name in job["dtypes"]:
+        full = init_params(torch.Generator().manual_seed(0), cfg, getattr(torch, name))
+        runs = {}
+        for zero1 in (False, True):
+            p = dataclasses.replace(par, zero1=zero1)
+            params = sh.shard_tree(full, sh.param_pspecs(cfg, full, tp), p)
+            params = TreeDef.of(params).unflatten([t.clone() for t in leaves(params)])
+            opt = init_opt_state(params, cfg, p)
+            step = make_train_step(cfg, remat="none", total_steps=10, par=p)
+            metrics, calls = [], []
+            for s in range(job["steps"]):
+                before = sh.all_reduce.calls
+                params, opt, m = step(params, opt, batch, s)
+                calls.append(sh.all_reduce.calls - before)
+                metrics.append((m["loss"].clone(), m["grad_norm"].clone()))
+            runs[zero1] = (params, opt, metrics, calls)
+        (p0, o0, m0, c0), (p1, o1, m1, c1) = runs[False], runs[True]
+        moment_bytes = {z: sum(t.numel() * t.element_size()
+                               for t in leaves({"mu": o["mu"], "nu": o["nu"]}))
+                        for z, (_, o, _, _) in runs.items()}
+        out[name] = {
+            "params_equal": all(torch.equal(_bits(a), _bits(b))
+                                for a, b in zip(leaves(p0), leaves(p1))),
+            "metrics_equal": all(torch.equal(_bits(a), _bits(b)) for x, y in zip(m0, m1)
+                                 for a, b in zip(x, y)),
+            "params_moved": not all(torch.equal(a, b) for a, b in zip(
+                leaves(p0), leaves(sh.shard_tree(full, sh.param_pspecs(cfg, full, tp),
+                                                 par)))),
+            "loss": [float(m[0]) for m in m1],
+            "moment_bytes": moment_bytes,
+            "cuts": sh.zero1_cuts(cfg, p1, dataclasses.replace(par, zero1=True)),
+            "extra_calls": [b - a for a, b in zip(c0, c1)],
+        }
+    return out

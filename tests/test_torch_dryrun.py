@@ -9,6 +9,10 @@ against a live run and against the JAX package.
 * Parameter shards: their bytes equal those the reference's ``param_pspecs``
   give on ``jax.eval_shape``'d parameters, for every config on both
   production meshes.
+* Train cells: every config's ``train_4k`` arguments (bf16 parameters, fp32
+  ZeRO-1 moments, the batch) equal, part by part, the per-device bytes of
+  the reference's own ``build_cell`` on a ``jax.sharding.AbstractMesh`` of
+  the production shape.
 * ``model_flops_*``: the reference's formula on the reference's config.
 * The FLOP formula of each port op equals a hand count at one shape.
 * Every (head dim, group) pair a rank hands ``decode_attention`` at model
@@ -72,6 +76,67 @@ def test_collectives_equal_a_live_run(arch, mesh):
         assert rec["model_flops_per_device"] == rec["model_flops_global"] / np.prod(mesh)
     assert [r[n]["calls"] for r in live[1:] for n in CELLS] == \
         [live[0][n]["calls"] for _ in live[1:] for n in CELLS]    # every rank alike
+
+
+def _reference_dryrun():
+    """``repro.launch.dryrun``, imported with the process's ``XLA_FLAGS`` kept:
+    the module sets a 512-device host platform for its own CLI, which must
+    not reach the other tests of this process."""
+    import importlib
+    import os
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module("repro.launch.dryrun")
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+
+
+def _per_device_bytes(tree) -> int:
+    return sum(math.prod(leaf.sharding.shard_shape(leaf.shape)) * leaf.dtype.itemsize
+               for leaf in jax.tree_util.tree_leaves(tree))
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "fnbench_tiny"])
+@pytest.mark.parametrize("kind", list(dryrun.MESHES))
+def test_train_cell_arguments_equal_the_reference_build_cell(arch, kind):
+    axes, sizes = dryrun.MESHES[kind]
+    jdry = _reference_dryrun()
+    _, jargs, *_ = jdry.build_cell(arch, "train_4k",
+                                   jax.sharding.AbstractMesh(sizes, axes))
+    want = dict(zip(("params", "opt_state", "batch"),
+                    (_per_device_bytes(a) for a in jargs[:3])))
+    cfg = get_config(arch)
+    fn, args, dtype, parts = dryrun.build_cell(cfg, SHAPES["train_4k"],
+                                               Parallel.placeholder(cfg, axes, sizes))
+    assert dtype == "bfloat16"
+    assert parts == want, (arch, kind, parts, want)
+    assert all(t.dtype == torch.float32 for t in leaves(args[1]["mu"]))
+
+
+def test_zero1_cuts_follow_the_reference_rule():
+    """At qwen1.5-0.5b's (16, 16) mesh: each moment is cut over data on the
+    first dim the reference's ``zero1`` picks, and rank 0 of data holds the
+    first slice."""
+    jdry = _reference_dryrun()
+    mesh = jax.sharding.AbstractMesh((16, 16), ("data", "model"))
+    _, jargs, *_ = jdry.build_cell("qwen1_5_0_5b", "train_4k", mesh)
+    jspecs = [leaf.sharding.spec for leaf in jax.tree_util.tree_leaves(jargs[1]["mu"])]
+    cfg = get_config("qwen1_5_0_5b")
+    par = dataclasses.replace(Parallel.placeholder(cfg, ("data", "model"), (16, 16)),
+                              zero1=True)
+    params, _ = dryrun.shard_params(cfg, torch.bfloat16, par)
+    from repro_torch.models.sharding import zero1_cuts
+    cuts = zero1_cuts(cfg, params, par)
+    assert len(cuts) == len(jspecs)
+    for cut, spec, p in zip(cuts, jspecs, leaves(params)):
+        dims = list(spec) + [None] * (p.ndim - len(spec))
+        want = dims.index("data") if "data" in dims else None
+        assert (cut[0] if cut else None) == want
+        if cut:
+            assert cut[1:] == (0, p.shape[cut[0]] // 16)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

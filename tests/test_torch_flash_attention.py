@@ -269,16 +269,17 @@ GRAD_ROWS = [
 ]
 
 
-def _emulated_backward(q, k, v, dout, causal, window, softcap):
+def _emulated_backward(q, k, v, dout, causal, window, softcap, fwd=None):
     """The backward kernels' algorithm (csrc/flash_attention.cu) in fp32
     tensor ops: lse from the op's forward, D = rowsum(dO * O), P = exp(s - lse)
     (1/Sk in a row whose keys are all masked), dS = P (dP - D) (1 - tanh^2)
     where the logit was not masked, dV = P^T dO and dK = scale dS^T Q summed
-    over the group's heads, dQ = scale dS K."""
+    over the group's heads, dQ = scale dS K. ``fwd``: the forward's (O, lse)
+    where another forward gave them."""
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g, scale = H // Hkv, 1.0 / math.sqrt(d)
-    out, lse = _flash_op(q, k, v, causal, window, softcap, scale, True)
+    out, lse = fwd or _flash_op(q, k, v, causal, window, softcap, scale, True)
     assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
     qg = q.reshape(B, Hkv, g, Sq, d)
     og = dout.reshape(B, Hkv, g, Sq, d)
@@ -327,6 +328,77 @@ def test_backward_algorithm_matches_autograd_and_jax(B, H, Hkv, Sq, Sk, d, causa
         bound = 1e-4 * max(float(np.abs(w).max()), 1e-30)
         for got in gots:
             assert float(np.abs(to_f32(got) - w).max()) <= bound, name
+
+
+def _emulated_bf16_backward(q, k, v, dout, causal, window, softcap):
+    """The backward kernels on bf16 (csrc/flash_attention.cu, ``E`` =
+    bf16): q, k, v, O and dO widened to fp32 as they are loaded, the fp32
+    algorithm of :func:`_emulated_backward` on them (D from the bf16 O, lse
+    from the bf16 forward), each gradient rounded to bf16 once."""
+    out, lse = _flash_op(q, k, v, causal, window, softcap, 1.0 / math.sqrt(q.shape[3]), True)
+    assert out.dtype == torch.bfloat16
+    grads = _emulated_backward(*(t.float() for t in (q, k, v, dout)), causal, window,
+                               softcap, fwd=(out.float(), lse))
+    return [g.to(torch.bfloat16) for g in grads]
+
+
+# (B, H, Hkv, S, d, causal, window, softcap): bf16 gradients against JAX's
+BF16_GRAD_ROWS = [
+    (2, 4, 2, 64, 64, True, None, None),         # qwen1.5's training attention, small
+    (1, 4, 1, 48, 32, True, 16, 30.0),           # GQA g=4, window, softcap
+    (1, 2, 2, 40, 64, False, None, None),        # non-causal
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,d,causal,window,cap", BF16_GRAD_ROWS)
+def test_bf16_backward_matches_jax_grad_of_the_reference_attention(B, H, Hkv, S, d, causal,
+                                                                   window, cap):
+    """bf16 q, k, v and dO: the op's CPU backward (the plain version, every
+    product in fp32, gradients rounded to bf16 once), the bf16 kernels'
+    algorithm (emulated) and ``jax.vjp`` through the reference's bf16
+    ``blockwise_attention`` (the model path XLA differentiates), each of dq,
+    dk, dv within the bf16 bar 2e-2 of its largest |entry|."""
+    rng = np.random.default_rng(S * 10 + d)
+    arrays = [jnp.asarray(rng.standard_normal(s), jnp.float32).astype(jnp.bfloat16)
+              for s in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d), (B, H, S, d))]
+    pos = jnp.arange(S, dtype=jnp.int32)
+
+    def model(q, k, v):
+        t = lambda x: x.transpose(0, 2, 1, 3)
+        return t(blockwise_attention(t(q), t(k), t(v), q_positions=pos, k_positions=pos,
+                                     causal=causal, window=window, attn_softcap=cap,
+                                     q_chunk=16))
+
+    _, vjp = jax.vjp(model, *arrays[:3])
+    want = [to_f32(g) for g in vjp(arrays[3])]
+    q, k, v, dout = (to_torch(a) for a in arrays)
+    assert q.dtype == torch.bfloat16
+    opts = dict(causal=causal, window=window, softcap=cap)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    through_op = torch.autograd.grad(flash_attention(*qkv, **opts), qkv, dout)
+    plain = flash_attention_backward(q, k, v, None, None, dout, **opts)
+    emulated = _emulated_bf16_backward(q, k, v, dout, causal, window, cap)
+    for name, w, *gots in zip("qkv", want, through_op, plain, emulated):
+        bound = TOL["bfloat16"] * float(np.abs(w).max())
+        for got in gots:
+            assert got.dtype == torch.bfloat16
+            assert float(np.abs(to_f32(got) - w).max()) <= bound, name
+
+
+def test_backward_fake_takes_bf16():
+    """On meta tensors (the dry run's trace) a bf16 forward keeps its lse and
+    the backward's fake gives bf16 gradients; no dtype other than fp32 and
+    bf16 passes."""
+    with torch.device("meta"):
+        q = torch.empty(1, 4, 16, 64, dtype=torch.bfloat16, requires_grad=True)
+        k = torch.empty(1, 2, 16, 64, dtype=torch.bfloat16, requires_grad=True)
+        out = flash_attention(q, k, k)
+        dq, dk = torch.autograd.grad(out.sum(), (q, k))
+    assert dq.dtype == dk.dtype == torch.bfloat16 and dq.shape == q.shape
+    with torch.device("meta"):
+        h = torch.empty(1, 2, 8, 64, dtype=torch.float16)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            flash_attention_backward(h, h, h, h, torch.empty(1, 2, 8), h)
 
 
 def test_forward_writes_lse_only_when_a_gradient_will_be_taken():

@@ -392,25 +392,75 @@ def test_flash_attention_backward_matches_plain():
 
 @pytest.mark.gpu
 def test_flash_attention_backward_is_reproducible_and_bf16_raises():
-    """No atomics: two backwards give equal bits. bf16 has no backward on the
-    card: a forward that needs a gradient raises, as does the backward."""
+    """No atomics: two backwards give equal bits, in fp32 and in bf16. What
+    the kernels do not take still raises: a float16 forward that needs a
+    gradient, and a backward whose dout is not the inputs' dtype."""
     dev = _card()
     gen = torch.Generator(device="cpu").manual_seed(22)
     q, k, v = (torch.randn(s, generator=gen).to(dev) for s in
                ((1, 8, 333, 64), (1, 2, 333, 64), (1, 2, 333, 64)))
     dout = torch.randn(q.shape, generator=gen).to(dev)
-    out = flash_attention(*(t.requires_grad_(True) for t in (q, k, v)))
-    g1 = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
-    g2 = torch.autograd.grad(out, (q, k, v), dout)
-    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
-    qb, kb, vb = (t.detach().to(torch.bfloat16) for t in (q, k, v))
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention(*qkv)
+        g1 = torch.autograd.grad(out, qkv, dout.to(dtype), retain_graph=True)
+        g2 = torch.autograd.grad(out, qkv, dout.to(dtype))
+        assert all(g.dtype == dtype for g in g1)
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2)), dtype
+    qh, kh, vh = (t.detach().to(torch.float16) for t in (q, k, v))
     with pytest.raises(TypeError):
-        flash_attention(qb.requires_grad_(True), kb, vb)
+        flash_attention(qh.requires_grad_(True), kh, vh)
+    qb, kb, vb = (t.detach().to(torch.bfloat16) for t in (q, k, v))
     lse = torch.zeros(q.shape[:3], device=dev)
     with pytest.raises(TypeError):
-        flash_attention_backward(qb, kb, vb, qb, lse, qb)
+        flash_attention_backward(qb, kb, vb, qb, lse, dout)
     with torch.no_grad():                        # serving's bf16 forward still runs
         assert flash_attention(qb, kb, vb).dtype == torch.bfloat16
+
+
+BF16_GRAD_TOL = 2e-2    # of the largest |gradient| in each of dq, dk, dv: bf16's bar
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_backward_matches_plain():
+    """bf16 on the card: the tensor-core forward's rows' log-sum-exp against
+    the plain one (fp32 logits of the same bf16 inputs; a row whose keys are
+    all masked below -1e38 in both), and the bf16 backward kernels against
+    torch.autograd.grad through the plain version (products in fp32,
+    gradients rounded to bf16 once): dq, dk, dv in bf16, each within 2e-2 of
+    its largest |entry|, reached through autograd (one launch each way,
+    counted) and through the wrapper."""
+    from repro_torch.kernels.flash_attention.ops import _flash_op, _plain_scores
+    dev = _card()
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    for (B, H, Hkv, Sq, Sk, d, causal, window, cap) in FLASH_GRAD_ROWS + [
+            (4, 16, 16, 1024, 1024, 64, True, None, None)]:      # qwen1.5's training shape
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                   for shape in ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
+        dout = torch.randn((B, H, Sq, d), generator=gen).to(dev, torch.bfloat16)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        _, lse = _flash_op(q, k, v, causal, window, cap, d ** -0.5, True)
+        want = torch.logsumexp(_plain_scores(q, k, causal, window, cap, None), -1)
+        want = want.reshape(lse.shape)
+        masked = want < -1e38
+        assert torch.equal(lse < -1e38, masked)
+        live = (lse - want)[~masked]
+        assert live.numel() == 0 or float(live.abs().max()) <= 1e-4
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+        grads = torch.autograd.grad(flash_attention(*qkv, **opts), qkv, dout)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == fwd + 1
+        assert flash_attention_backward.launches == bwd + 1
+        out, lse = _flash_op(q, k, v, causal, window, cap, d ** -0.5, True)
+        direct = flash_attention_backward(q, k, v, out, lse, dout, **opts)
+        ref = flash_attention_backward_plain(q, k, v, dout, **opts)
+        for name, g, g2, r in zip("qkv", grads, direct, ref):
+            assert g.dtype == torch.bfloat16 and torch.equal(g, g2), name
+            assert torch.isfinite(g).all(), name
+            bound = BF16_GRAD_TOL * float(r.float().abs().max())
+            assert float((g.float() - r.float()).abs().max()) <= bound, (
+                name, (B, H, Hkv, Sq, Sk, d))
 
 
 @pytest.mark.gpu

@@ -350,9 +350,15 @@ def test_serve_launcher_runs_recurrentgemma_on_the_cpu(capsys, monkeypatch):
     assert "3 requests, 12 tokens" in out
 
 
-def test_port_imports_no_jax():
-    """Every module of the port imports with JAX made unimportable."""
+def test_port_imports_no_jax(tmp_path):
+    """Every module of the port imports with JAX made unimportable, and so
+    does a spawned sweep worker: ``jax`` and ``repro`` on the path are
+    packages that raise when imported, which the spawned workers inherit."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name in ("jax", "repro"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise RuntimeError('{name} imported')\n")
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -362,8 +368,14 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
+        "from repro_torch.core.scenario import Scenario\n"
+        "from repro_torch.experiments.executor import run_sweep\n"
+        "base = Scenario(name='w', engine='single', methods=['warmswap'], traces={\n"
+        "    'name': 'azure', 'kwargs': {'n_functions': 2, 'horizon_min': 60, 'seed': 0}})\n"
+        "rep = run_sweep(base, {'traces.kwargs.seed': [0, 1]}, parallel=2)\n"
+        "assert rep.n_run == 2\n"
         "print(' '.join(names))\n")
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), os.path.join(root, "src")]))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=root, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -375,4 +387,7 @@ def test_port_imports_no_jax():
             "repro_torch.core.aot", "repro_torch.models.sharding",
             "repro_torch.launch.mesh", "repro_torch.launch.cluster",
             "repro_torch.core.scenario", "repro_torch.core.fleet_vec",
-            "repro_torch.kernels.fleet_scan.ops"} <= names
+            "repro_torch.kernels.fleet_scan.ops", "repro_torch.experiments",
+            "repro_torch.experiments.executor", "repro_torch.experiments.store",
+            "repro_torch.experiments.tournament",
+            "repro_torch.experiments.__main__"} <= names
