@@ -42,7 +42,10 @@ families, and checks them:
    whisper's cross and h2o's decode,
    diag_recurrence at falcon-mamba's SSM chunk and recurrentgemma's RG-LRU
    prefill, each pair timed in turns, with a cold L2 as the main path finds
-   it and with a warm one), page_gather's host time per call, and the
+   it and with a warm one; the flash backward on both tensor-core routes,
+   bf16 and fp32 at qwen1.5's training shape and fp32 at qwen3's d=128 and
+   recurrentgemma's local d=256 ones, beside SDPA's backward, its bound and
+   its launches by route), page_gather's host time per call, and the
    qwen1.5 cold-start totals;
 7. serving on qwen3-1.7b at full width (28 layers, fp32, 6.9 GB image): a
    ReplicaSet of two replicas brought up from the pool (BULK), each with 4
@@ -85,8 +88,9 @@ families, and checks them:
    wraps every layer's ring, 8 decode steps through it, held against the full
    forward and the plain path within 0.125 of each logit;
 3g. (run after phase 3) gradients: the flash_attention backward kernels
-   (fp32) against torch.autograd.grad through the plain version at the
-   training shapes of qwen1.5-0.5b, qwen3-1.7b, recurrentgemma's local layer,
+   (fp32, 3xTF32 on the tensor cores) against torch.autograd.grad through
+   the plain version at the training shapes of qwen1.5-0.5b, qwen3-1.7b,
+   recurrentgemma's local layer,
    gemma2-27b (window 4096, softcap 50), whisper's encoder and cross
    attention and h2o-danube3-4b (d=120), and the diag_recurrence backward
    (the kernel run backwards in time) on both routes at falcon-mamba's and
@@ -272,6 +276,14 @@ TRAIN_LR = 3e-3            # peak rate: 3e-5 .. 3e-4 over the 10 warm-up steps
 ROLLBACK_SHAPE, ROLLBACK_STEPS = (2, 256), 8
 ROLLBACK_TOL = 1e-6        # tests/test_serving_ft.py:107
 GRIFFIN_TRAIN, GRIFFIN_STEPS = (1, 2560), 3       # recurrentgemma-2b training: B, S
+#: median step times (s) of phases 14 and 20b with the flash backward's earlier
+#: design (fp32 products on CUDA cores in both dtypes), on one NVIDIA H100 80GB
+#: HBM3 at 700 W: printed beside this run's
+CUDA_CORE_BWD_STEP_S = {"14": 0.4964, "20b": 0.2797}
+#: phase 6's flash backward rows: (FLASH_GRAD label, dtype, batch)
+BWD_TIMED = [("qwen1.5-0.5b", "bfloat16", TRAIN_SHAPE[0]),
+             ("qwen1.5-0.5b", "float32", TRAIN_SHAPE[0]),
+             ("qwen3-1.7b", "float32", 1), ("recurrentgemma local", "float32", 1)]
 SCENARIOS = os.path.join(ROOT, "benchmarks", "scenarios")
 #: 19a: keep-alive (min) -> group lengths; around the reference's pad buckets
 #: (powers of two from 64), and one long group
@@ -323,6 +335,24 @@ SOURCES = {"page_gather": "page_gather", "flash_attention": "flash_attention",
            "flash_attention_backward": "flash_attention",
            "decode_attention": "decode_attention", "diag_recurrence": "diag_recurrence",
            "fleet_scan": "fleet_scan"}
+
+
+def launch_counts(kernels: dict) -> dict:
+    """Each kernel's launches since the last reset; the flash backward's also
+    by route, as ``flash_attention_backward:<route>``."""
+    counts = {k: v.launches for k, v in kernels.items()}
+    bwd = kernels.get("flash_attention_backward")
+    if bwd is not None:
+        counts.update({f"flash_attention_backward:{r}": n
+                       for r, n in bwd.launches_by_route.items()})
+    return counts
+
+
+def bwd_route(dtype: str) -> str:
+    """The flash backward's route for ``dtype`` ("float32" or "bfloat16")."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import BWD_ROUTES
+    return BWD_ROUTES[getattr(torch, dtype)]
 
 
 def reset_counts(kernels) -> None:
@@ -1807,7 +1837,7 @@ def check_gradients(device, errs: dict) -> None:
     from repro_torch.kernels.flash_attention.ops import (flash_attention_backward,
                                                          flash_attention_backward_plain)
     gen = torch.Generator(device=device).manual_seed(31)
-    worst = 0.0
+    worst, worst_abs = 0.0, 0.0
     for label, (H, Hkv, Sq, Sk, d, causal, window, cap) in FLASH_GRAD.items():
         q = torch.randn((1, H, Sq, d), generator=gen, device=device).requires_grad_(True)
         k, v = (torch.randn((1, Hkv, Sk, d), generator=gen, device=device)
@@ -1815,11 +1845,15 @@ def check_gradients(device, errs: dict) -> None:
         dout = torch.randn(q.shape, generator=gen, device=device)
         opts = dict(causal=causal, window=window, softcap=cap)
         before = flash_attention_backward.launches
+        on_route = flash_attention_backward.launches_by_route[bwd_route("float32")]
         out = flash_attention(q, k, v, **opts)
         got = torch.autograd.grad(out, (q, k, v), dout)
         sync(device)
-        expect(flash_attention_backward.launches == before + 1,
-               f"the {label} gradient did not launch the backward kernel")
+        expect(flash_attention_backward.launches == before + 1
+               and flash_attention_backward.launches_by_route[bwd_route("float32")]
+               == on_route + 1,
+               f"the {label} gradient did not launch the backward kernel on "
+               f"{bwd_route('float32')}")
         ref = flash_attention_backward_plain(q, k, v, dout, **opts)
         rel = []
         for name, g, r in zip("qkv", got, ref):
@@ -1829,13 +1863,15 @@ def check_gradients(device, errs: dict) -> None:
                    f"flash backward d{name} at {label}: max |err| {err:.3e} against "
                    f"{GRAD_TOL} x {scale:.3e}")
             rel.append(err / scale)
+            worst_abs = max(worst_abs, err)
         worst = max(worst, *rel)
         log(f"[3g] flash backward {label} H{H}/{Hkv} Sq{Sq} Sk{Sk} d{d} causal={causal} "
             f"window={window} softcap={cap}: max |err| / max |g| dq {rel[0]:.3e} dk "
             f"{rel[1]:.3e} dv {rel[2]:.3e} (bar {GRAD_TOL})")
         del q, k, v, dout, out, got, ref
         torch.cuda.empty_cache()
-    errs["flash_attention_backward"] = worst
+    log(f"[3g] flash backward: max |err| / max |g| {worst:.3e}, max |err| {worst_abs:.3e}")
+    errs["flash_attention_backward"] = worst_abs
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
     worst = 0.0
     for label, (B, S, C) in RECURRENCE_GRAD.items():
@@ -1946,11 +1982,15 @@ def phase_train_qwen(device, tmp: str, tag: str = "14") -> dict:
     per_step = {"forward": flash.launches_by_pass["forward"] / TRAIN_STEPS,
                 "recompute": flash.launches_by_pass["recompute"] / TRAIN_STEPS,
                 "backward": flash_attention_backward.launches / TRAIN_STEPS}
-    counts = {k: v.launches for k, v in kernels.items()}
+    counts = launch_counts(kernels)
     log(f"[{tag}] flash_attention launches per step: {per_step} (want {n_layers} each); "
-        f"by route {flash.launches_by_route}")
+        f"by route {flash.launches_by_route}; backward by route "
+        f"{flash_attention_backward.launches_by_route}")
     expect(per_step == dict.fromkeys(per_step, n_layers),
            f"qwen1.5 training ran {per_step} flash launches a step, not {n_layers} each")
+    expect(counts[f"flash_attention_backward:{bwd_route('float32')}"]
+           == counts["flash_attention_backward"],
+           f"qwen1.5 fp32 training ran backwards off {bwd_route('float32')}: {counts}")
     losses = [h["loss"] for h in hist]
     expect(len(hist) == TRAIN_STEPS and all(map(math.isfinite, losses)),
            f"qwen1.5 training history: {losses}")
@@ -1960,7 +2000,8 @@ def phase_train_qwen(device, tmp: str, tag: str = "14") -> dict:
     log(f"[{tag}] qwen1.5-0.5b fp32 B{B} S{S} remat=unit, {TRAIN_STEPS} steps: loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; step times (s, after the first) "
         f"{[round(t, 4) for t in times]}; median {step_s:.4f} s, {B * S / step_s:.1f} "
-        f"tokens/s; first step {hist[0]['seconds']:.3f} s")
+        f"tokens/s (with the backward on CUDA cores: {CUDA_CORE_BWD_STEP_S[tag]} s); first "
+        f"step {hist[0]['seconds']:.3f} s")
     data = DataConfig(global_batch=B, seq_len=S, seed=0)
     cfg = get_config("qwen1_5_0_5b")
     batch = batch_to_torch(SyntheticTokenPipeline.batch_at(cfg, data, TRAIN_STEPS), device)
@@ -2048,7 +2089,7 @@ def phase_train_griffin(device, tag: str = "16") -> dict:
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
     rec, flash = kernels["diag_recurrence"], kernels["flash_attention"]
-    counts = {k: v.launches for k, v in kernels.items()}
+    counts = launch_counts(kernels)
     log(f"[{tag}] recurrentgemma-2b 1 unit fp32 B{B} S{S}: losses {losses}, step times "
         f"{[round(t, 4) for t in times]} s; diag_recurrence by route "
         f"{rec.launches_by_route}, by pass {rec.launches_by_pass}; flash forward "
@@ -2056,6 +2097,9 @@ def phase_train_griffin(device, tag: str = "16") -> dict:
     expect(all(map(math.isfinite, losses)), f"recurrentgemma losses {losses}")
     expect(rec.launches_by_pass["backward"] > 0 and counts["flash_attention_backward"] > 0,
            "recurrentgemma's step did not run both kernels' backward")
+    expect(counts[f"flash_attention_backward:{bwd_route('float32')}"]
+           == counts["flash_attention_backward"],
+           f"recurrentgemma's fp32 step ran backwards off {bwd_route('float32')}: {counts}")
     return {"counts": counts, "losses": losses, "step_s": times,
             "diag_routes": dict(rec.launches_by_route),
             "diag_passes": dict(rec.launches_by_pass)}
@@ -2400,7 +2444,7 @@ def _rank_case(case: str, rank: int, device, refs: str) -> dict:
         out["times"] = {"step_s": time.perf_counter() - t1,
                         "step_all_reduces": sh.all_reduce.calls - calls,
                         "step_all_reduce_bytes": sh.all_reduce.bytes - nbytes}
-        counts = {k: v.launches for k, v in kernels.items()}
+        counts = launch_counts(kernels)
         flash = kernels["flash_attention"]
         out["flash_per_step"] = {"forward": flash.launches_by_pass["forward"],
                                  "recompute": flash.launches_by_pass["recompute"],
@@ -2436,7 +2480,7 @@ def _rank_case(case: str, rank: int, device, refs: str) -> dict:
                           "step_s": time.perf_counter() - t1,
                           "all_reduces": sh.all_reduce.calls - calls}
             del opt
-        counts = {k: v.launches for k, v in kernels.items()}    # the ZeRO-1 step's
+        counts = launch_counts(kernels)    # the ZeRO-1 step's
         flash = kernels["flash_attention"]
         out["flash_per_step"] = {"forward": flash.launches_by_pass["forward"],
                                  "recompute": flash.launches_by_pass["recompute"],
@@ -2945,10 +2989,13 @@ def check_bf16_backward(device, errs: dict, tag: str = "20a") -> dict:
     expect(lse_err <= LSE_TOL[0] + LSE_TOL[1] * float(want.abs().max()),
            f"[{tag}] tc_bf16 lse differs from the plain one by {lse_err}")
     before = flash_attention_backward.launches
+    on_route = flash_attention_backward.launches_by_route[bwd_route("bfloat16")]
     got = flash_attention_backward(q, k, v, out, lse, dout, causal=True)
     sync(device)
-    expect(flash_attention_backward.launches == before + 1,
-           f"[{tag}] the bf16 backward did not launch its kernel")
+    expect(flash_attention_backward.launches == before + 1
+           and flash_attention_backward.launches_by_route[bwd_route("bfloat16")]
+           == on_route + 1,
+           f"[{tag}] the bf16 backward did not launch its kernel on {bwd_route('bfloat16')}")
     ref = flash_attention_backward_plain(q, k, v, dout, causal=True)
     worst, rel = 0.0, []
     for name, g, r in zip("qkv", got, ref):
@@ -2973,7 +3020,8 @@ def phase_train_bf16(device, fp32: dict, tag: str = "20b") -> dict:
     ``models/api.make_train_step`` (the launcher trains in fp32, as the
     reference's does): every flash launch on the tensor-core route, 24
     forwards, recomputes and bf16 backwards a step, a finite falling loss;
-    step time and tokens/s beside phase 14's fp32 run (``fp32``)."""
+    step time and tokens/s beside phase 14's fp32 run (``fp32``); then one
+    profiled step (device busy share, the kernels that took the most)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.tree import leaves
@@ -3000,7 +3048,7 @@ def phase_train_bf16(device, fp32: dict, tag: str = "20b") -> dict:
         params, opt, m = step_fn(params, opt, batch, s)
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
-    counts = {k: v.launches for k, v in kernels.items()}
+    counts = launch_counts(kernels)
     flash = kernels["flash_attention"]
     per_step = {"forward": flash.launches_by_pass["forward"] / TRAIN_STEPS,
                 "recompute": flash.launches_by_pass["recompute"] / TRAIN_STEPS,
@@ -3009,6 +3057,9 @@ def phase_train_bf16(device, fp32: dict, tag: str = "20b") -> dict:
            f"[{tag}] {per_step} flash launches a step, not {cfg.n_layers} each")
     expect(flash.launches_by_route["tc_bf16"] == flash.launches,
            f"[{tag}] flash routes {flash.launches_by_route}: not all tc_bf16")
+    expect(counts[f"flash_attention_backward:{bwd_route('bfloat16')}"]
+           == counts["flash_attention_backward"],
+           f"[{tag}] backward routes {counts}: not all {bwd_route('bfloat16')}")
     expect(all(p.dtype in (torch.bfloat16, torch.float32) for p in leaves(params))
            and any(p.dtype == torch.bfloat16 for p in leaves(params)),
            f"[{tag}] the parameters left bf16")
@@ -3016,17 +3067,19 @@ def phase_train_bf16(device, fp32: dict, tag: str = "20b") -> dict:
            f"[{tag}] bf16 training loss: {losses}")
     step_s = statistics.median(times[1:])
     peak = torch.cuda.max_memory_allocated(device) / 1e9
+    prof = profile_step(step_fn, params, opt, batches[-1], TRAIN_STEPS, tag)
     log(f"[{tag}] qwen1.5-0.5b bf16 B{B} S{S} remat=unit, {TRAIN_STEPS} steps (peak rate "
         f"{BF16_TRAIN_LR}): loss {losses[0]:.4f} -> {losses[-1]:.4f}; step times (s, after "
         f"the first) {[round(t, 4) for t in times[1:]]}; median {step_s:.4f} s, "
-        f"{B * S / step_s:.1f} tokens/s (phase 14 fp32: {fp32['median_step_s']:.4f} s, "
+        f"{B * S / step_s:.1f} tokens/s (with the backward on CUDA cores: "
+        f"{CUDA_CORE_BWD_STEP_S[tag]} s; phase 14 fp32: {fp32['median_step_s']:.4f} s, "
         f"{fp32['tokens_per_s']:.1f} tokens/s); first step {times[0]:.3f} s; peak "
         f"{peak:.2f} GB; launches a step {per_step}")
     del params, opt, batches
     return {"counts": counts, "losses": losses, "median_step_s": step_s,
             "tokens_per_s": B * S / step_s, "first_step_s": times[0], "peak_gb": peak,
             "fp32_median_step_s": fp32["median_step_s"],
-            "fp32_tokens_per_s": fp32["tokens_per_s"], "flash_per_step": per_step}
+            "fp32_tokens_per_s": fp32["tokens_per_s"], "flash_per_step": per_step, **prof}
 
 
 def phase_experiments(device, tmp: str, tag: str = "20d") -> dict:
@@ -3125,6 +3178,81 @@ def _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, label: 
             "library_ms": t_l}
 
 
+def _flash_backward_rows(gen, device, errs: dict, path_counts: dict) -> list:
+    """Phase 6's rows of the flash_attention backward (BWD_TIMED): bf16 and
+    fp32 at qwen1.5-0.5b's training shape (phases 20b and 14), fp32 at
+    qwen3-1.7b's d=128 and recurrentgemma's local d=256 (phase 16's) training
+    attention; from a forward that kept its rows' lse, beside the plain
+    version (autograd through it, forward included) and SDPA's backward alone
+    in the same dtype (the window as a boolean mask). Each row's launches are
+    its route's on the main paths (every head dim); an fp32 row states the
+    bound of the units it runs on (three TF32 products a product) and the
+    CUDA cores' one."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_backward,
+                                                         flash_attention_backward_plain)
+    from repro_torch.kernels.sweep import (PEAK_FLOPS, bound_ms, cuda_ms,
+                                           flash_backward_bound_ms, flash_backward_work)
+    rows = []
+    for label, name, B in BWD_TIMED:
+        H, Hkv, Sq, Sk, d, causal, window, cap = FLASH_GRAD[label]
+        dtype, route = getattr(torch, name), bwd_route(name)
+        q = torch.randn((B, H, Sq, d), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((B, Hkv, Sk, d), generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, cap,
+                                                         d ** -0.5, True)
+        mask = None
+        if window is not None and window < Sk:
+            qi = torch.arange(Sq, device=device)[:, None]
+            ki = torch.arange(Sk, device=device)[None, :]
+            mask = (ki <= qi) & (qi - ki < window) if causal else (qi - ki < window)
+        t_k = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout, **opts))
+        t_p = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, dout, **opts),
+                      iters=5, per=2, warmup=1)
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            o_l = F.scaled_dot_product_attention(
+                *qkv, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+        t_l = cuda_ms(lambda: torch.autograd.grad(o_l, qkv, dout, retain_graph=True))
+        t_k2 = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout, **opts))
+        moved, ops = flash_backward_work(q, k, causal, window)
+        bound, by = flash_backward_bound_ms(moved, ops, dtype)
+        if dtype == torch.float32:
+            core = bound_ms(moved, ops, dtype)[0]
+            also = {"bound_cuda_core_ms": core}
+            units = (f"3xTF32 at {PEAK_FLOPS['tf32'] / 1e12} TFLOP/s; CUDA cores at "
+                     f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s {core:.5f} ms, "
+                     f"{core / t_k:.4f} of it")
+        else:
+            also, units = {}, f"bf16 at {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s"
+        n = sum(c.get(f"flash_attention_backward:{route}", 0) for c in path_counts.values())
+        log(f"[6] flash_attention backward {label} {name} ({route}) B{B} H{H}/{Hkv} Sq{Sq} "
+            f"Sk{Sk} d{d} causal={causal} window={window}: kernel {t_k:.4f} / {t_k2:.4f} ms "
+            f"({ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s of the gradient's 5 products, "
+            f"{bound / t_k:.4f} of the bound), plain (autograd through the plain forward) "
+            f"{t_p:.4f} ms, sdpa backward {t_l:.4f} ms, bound {bound:.5f} ms ({by}, {units}); "
+            f"launches on {route} {n}")
+        rows.append({"name": "flash_attention_backward", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": "src/repro/models/attention.py:111",
+                     "shape": f"{label} training {name} on {route} B{B} H{H}/{Hkv} Sq{Sq} "
+                              f"d{d} causal window={window} (no TPU kernel: the reference "
+                              f"differentiates jnp attention; launches: the {route} route's "
+                              f"on the main paths, every head dim)",
+                     "launches": n, "launches_by_route": {route: n},
+                     "max_abs_err": errs["flash_attention_backward" if name == "float32"
+                                         else "flash_attention_backward:bf16"],
+                     "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                     **also, "library_ms": t_l})
+        del q, k, v, dout, out, lse, qkv, o_l, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
                 path_routes: dict, decode_inputs: dict, core_d64: int) -> list:
     import torch
@@ -3218,54 +3346,7 @@ def phase_times(img, device, errs: dict, launches: dict, path_counts: dict,
               "whisper encoder, non-causal")
     flash_row(torch.float32, FLASH_CROSS, False, None, "whisper", "whisper cross prefill")
 
-    # the flash_attention backward at qwen1.5-0.5b's training shape, fp32 (phase
-    # 14's) and bf16 (20b's), from a forward that kept its rows' lse, beside the
-    # plain version (autograd through it, forward included) and SDPA's backward
-    # alone in the same dtype; each row's launches are its dtype's paths'
-    from repro_torch.kernels.flash_attention.ops import (flash_attention_backward,
-                                                         flash_attention_backward_plain)
-    from repro_torch.kernels.sweep import flash_backward_work
-    B, S = TRAIN_SHAPE
-    H, Hkv, _, _, d, causal, window, cap = FLASH_GRAD["qwen1.5-0.5b"]
-    bf16_launches = path_counts["train-bf16"]["flash_attention_backward"]
-    for dtype, n, err in ((torch.float32,
-                           launches["flash_attention_backward"] - bf16_launches,
-                           errs["flash_attention_backward"]),
-                          (torch.bfloat16, bf16_launches,
-                           errs["flash_attention_backward:bf16"])):
-        name = str(dtype).split(".")[1]
-        q = torch.randn((B, H, S, d), generator=gen, device=device).to(dtype)
-        k, v = (torch.randn((B, Hkv, S, d), generator=gen, device=device).to(dtype)
-                for _ in range(2))
-        dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
-        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, cap,
-                                                         d ** -0.5, True)
-        t_k = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout,
-                                                       causal=causal))
-        t_p = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, dout, causal=causal),
-                      iters=5, per=2, warmup=1)
-        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        with torch.enable_grad():
-            o_l = F.scaled_dot_product_attention(*qkv, is_causal=causal)
-        t_l = cuda_ms(lambda: torch.autograd.grad(o_l, qkv, dout, retain_graph=True))
-        t_k2 = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout,
-                                                        causal=causal))
-        moved, ops = flash_backward_work(q, k, causal, window)
-        bound, by = bound_ms(moved, ops, dtype)
-        log(f"[6] flash_attention backward {name} B{B} H{H}/{Hkv} S{S} d{d} causal: kernel "
-            f"{t_k:.4f} / {t_k2:.4f} ms ({ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
-            f"{bound / t_k:.4f} of the bound), plain (autograd through the plain forward) "
-            f"{t_p:.4f} ms, sdpa backward {t_l:.4f} ms, bound {bound:.5f} ms ({by}, at the "
-            f"{name} peak); launches {n}")
-        rows.append({"name": "flash_attention_backward", "route": "cuda",
-                     "source": "src/repro_torch/csrc/flash_attention.cu",
-                     "replaces": "src/repro/models/attention.py:111",
-                     "shape": f"qwen1.5 training {name} B{B} H{H}/{Hkv} S{S} d{d} causal "
-                              f"(no TPU kernel: the reference differentiates jnp attention; "
-                              f"launches: the {name} training paths')",
-                     "launches": n, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                     "bound_ms": bound, "bound_by": by, "library_ms": t_l})
-        del q, k, v, dout, out, lse, qkv, o_l
+    rows += _flash_backward_rows(gen, device, errs, path_counts)
     # the fp32 cuda_core route at d=64 (granite-moe's, whisper's and internvl2's
     # fp32 prefills), at granite-moe's serving prefill
     B, H, Hkv, S, d = FLASH_GRANITE

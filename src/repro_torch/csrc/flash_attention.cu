@@ -314,18 +314,20 @@ struct TcCfg {
   static constexpr size_t kSmem = (kQTile + 4 * kKVTile) * sizeof(bf16);  // Q, K[2], V[2]
 };
 
-// rows [0, R) of a (rows, D) bf16 tile into a shared tile pad16(D) wide; rows
-// >= valid and columns >= D are zeros
-template <int R, int D, int NT>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int valid, int tid) {
-  constexpr int CPR = pad16(D) / 8;              // 16-byte chunks per shared row
-  constexpr int kStride = pad16(D) + 8;
+// rows [0, R) of a (rows, D) tile of E (bf16 or fp32) into a shared tile
+// pad16(D) wide plus 16 bytes of padding a row; rows >= valid and columns >= D
+// are zeros
+template <int R, int D, int NT, typename E = bf16>
+__device__ __forceinline__ void load_tile(uint32_t dst, const E* src, int valid, int tid) {
+  constexpr int EPC = 16 / sizeof(E);            // elements per 16-byte chunk
+  constexpr int CPR = pad16(D) / EPC;            // chunks per shared row
+  constexpr int kStride = pad16(D) + EPC;
 #pragma unroll
   for (int i = tid; i < R * CPR; i += NT) {
     const int r = i / CPR, c = i % CPR;
-    const bool in = r < valid && c * 8 < D;
-    cp_async16(dst + (r * kStride + c * 8) * 2,
-               src + (in ? static_cast<size_t>(r) * D + c * 8 : 0), in);
+    const bool in = r < valid && c * EPC < D;
+    cp_async16(dst + (r * kStride + c * EPC) * sizeof(E),
+               src + (in ? static_cast<size_t>(r) * D + c * EPC : 0), in);
   }
 }
 
@@ -685,9 +687,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
 // ---------------------------------------------------------------------------------
-// backward (fp32 or bf16 in, fp32 arithmetic on CUDA cores): FlashAttention-2's
-// algorithm
+// backward: FlashAttention-2's algorithm on the tensor cores (bf16 on mma.sync,
+// fp32 as three TF32 products)
 // ---------------------------------------------------------------------------------
 //
 // No TPU kernel has a backward: the reference trains through jnp attention
@@ -698,89 +701,305 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 //   P = exp(s - lse) recomputed per tile, s the forward's scaled, soft-capped,
 //   masked logit; dP = dO V^T; dS = P * (dP - D), times 1 - tanh^2 under the
 //   softcap and 0 where the mask replaced the logit by NEG_INF;
-//   dV = P^T dO, dK = scale * dS^T Q            flash_bwd_dkdv_kernel
-//   dQ = scale * dS K                           flash_bwd_dq_kernel
+//   dV = P^T dO, dK = scale * dS^T Q            flash_bwd_kernel<KV = true>
+//   dQ = scale * dS K                           flash_bwd_kernel<KV = false>
 // A row whose keys are all masked (lse = NEG_INF) averaged v over its Sk keys
 // in the forward, so there P = 1/Sk and dS = 0.
 //
-// Bound on this card: operations (five products of 2*d flops per unmasked
-// (q, k) pair, against the bytes of q, k, v, O, dO, dQ, dK, dV). No float
-// atomics: the dK/dV kernel gives each block one kv head's tile of T keys and
-// loops over the group's g query heads and their q tiles inside the block;
-// the dQ kernel gives each block one q tile and loops over the key tiles. Each
-// sum runs in a fixed order, so a step is bitwise reproducible. Layout as the
-// forward's cuda_core route: 256 threads as 16 x 16; tiles of T = 64 rows
-// (T = 32 at d=256, inside the shared memory) in fp32 rows padded to an odd
-// stride; thread (ty, tx) owns rows ty*R.. of its block's resident tile
-// (R = T/16) and columns tx + 16j of the streamed one. Head dims that are not
-// a multiple of 16 use DP = pad16(D) output columns, the pad ones never read
-// or written. The kernels are templated on the element type E of q, k, v, O,
-// dO and of dQ, dK, dV: bf16 is widened to fp32 as it is loaded into the fp32
-// shared tiles, every sum (and D) runs in fp32, and the gradients are rounded
-// to E once, as they are stored. lse and D stay fp32. The card's tensor cores
-// are left for a later design.
+// No float atomics, so a step is bitwise reproducible: the dK/dV launch gives
+// each block one kv head's TR = 64 keys (resident) and streams the group's
+// query heads and their q tiles through it; the dQ launch gives each block one
+// head's 64 queries (resident) and streams the key tiles, recomputing S and dP.
+// That is 7 products of 2*d flops per unmasked (q, k) pair against the 5 the
+// gradient needs; the bound (kernels/sweep.py, flash_backward_work) counts 5.
+// Both are one kernel: resident tiles R1, R2 (K, V or Q, dO), streamed tiles
+// T1, T2 (Q, dO or K, V); per streamed tile each warp takes its 16 resident
+// rows and computes s1 = R1 T1^T and s2 = R2 T2^T (S^T and dP^T for dK/dV,
+// S and dP for dQ, so lse and D index columns in the first and rows in the
+// second), turns them into P and dS in registers, and accumulates
+// acc1 += dS T1 (dK or dQ) and, for dK/dV, acc0 += P T2 (dV). The fp32
+// accumulator fragments of P and dS are the A operands of those products
+// directly: no shared-memory round trip. Streamed tiles arrive through
+// cp.async one tile ahead (two stages, or one staging tile refilled once it
+// is split), so the next tile's loads overlap this tile's products; causal and window masks skip whole tiles (skip_rule), and only
+// tiles the mask cuts run the per-entry mask; causal dQ tiles launch
+// heaviest first. Tiles are E in shared memory, pad16(D) wide (d=120 pads to
+// 128 with zeros) plus 16 bytes a row.
+//
+// tc_bf16 (E = bf16): mma.sync.m16n8k16, fp32 accumulate; R operands by
+// ldmatrix, the T operand of s1/s2 by ldmatrix and of the dK/dV/dQ products by
+// ldmatrix.trans; P and dS rounded to bf16 (pack_bf16) as they become A
+// operands, as FlashAttention-2 and the reference's bf16 path round P; exp2
+// with lse * log2(e). Bound: operations, 5 products at 989 TFLOP/s.
+//
+// tc_tf32x3 (E = float): each fp32 operand x is split into hi = tf32(x) and
+// lo = tf32(x - hi) (cvt.rna), and each product is lo.hi + hi.lo, then hi.hi,
+// on mma.sync.m16n8k8 tf32 with fp32 accumulate: about 2^-22 of a product,
+// inside the fp32 bar of 1e-4 where one TF32 product (2^-11) is not. Operands
+// come by 32-bit shared loads (ldmatrix is 16-bit). At d <= 128 each
+// streamed tile is split once, into {hi, lo} pairs in shared memory, as soon
+// as it lands, so the warps' B operands are one 64-bit load each. An
+// accumulator fragment holds columns 2t, 2t+1 where a tf32 A fragment wants
+// t, t+4: the k index of the dK/dV/dQ products is permuted (k = t is
+// streamed row 2t, k = t + 4 row 2t + 1) in A and B alike, so the fragments
+// are used as they stand. The tensor cores' fp32 accumulation rounds toward
+// zero, which over thousands of products drifts past the bar, so each tile's
+// dK/dV/dQ products sum in fresh fragments that one fp32 add puts into the
+// running ones. Bound: three TF32 products per fp32 product, 5 products at
+// 494.7 TFLOP/s (the CUDA cores' 67 TFLOP/s fp32 is the other bound a row
+// states).
+//
+// Tiles (BwdCfg): 64 resident rows of 4 warps; streamed tiles of TS = 64
+// rows at d = 32 and in bf16 at d = 64, 32 in fp32 at d = 64 and at d = 128
+// (dQ in bf16: 64), 32 (bf16) or 16 (fp32) at d = 256. At d = 256 the dK and
+// dV accumulators of a warp owning 16 keys by 256 columns (256 fp32 a
+// thread) outgrow the registers, so both launches give the columns to WN = 2
+// warps (8 warps a block); each warp of a pair reduces s1, s2 over its half
+// of d and the pair adds the halves through shared memory. The dK/dV grid is
+// B * Hkv * ceil(Sk / 64) blocks: with few kv heads and one sequence (g=10
+// at recurrentgemma's d=256) it leaves most SMs idle.
 
 namespace {
 
-template <int D>
-struct BwdCfg {
-  static constexpr int T = D > 128 ? 32 : 64;   // rows of a q tile and of a key tile
-  static constexpr int R = T / 16;              // rows per thread
-  static constexpr int DP = pad16(D);
-  static constexpr int CPT = DP / 16;           // output columns per thread
-  static constexpr int RS = D + 1;              // shared row stride
-  static constexpr int PS = T + 1;
-  static constexpr size_t kSmem = (4 * T * RS + 2 * T * PS + 2 * T) * sizeof(float);
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0));
+}
+
+// c (16x8 fp32) += a (16x8 tf32, row) * b (8x8 tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo, each a tf32 (round to nearest, ties away)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c[n] += a * b[n] as 3xTF32 for N independent fragments: lo.hi and hi.lo
+// first, then hi.hi, each round over all N (the mma asm is volatile, so nvcc
+// emits them in this order: no two dependent products back to back)
+template <int N>
+__device__ __forceinline__ void mma_tf32x3(float (&c)[N][4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[N][2],
+                                           const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bh[n][0], bh[n][1]);
+}
+
+template <typename E>
+struct IsF32 {
+  static constexpr bool value = false;
 };
+template <>
+struct IsF32<float> {
+  static constexpr bool value = true;
+};
+
+// One backward launch's tiling: KV = the dK/dV launch, else dQ.
+template <int D, typename E, bool KV>
+struct BwdCfg {
+  static constexpr bool kF32 = IsF32<E>::value;
+  static constexpr int DP = pad16(D);
+  static constexpr int TR = 64;                   // resident rows: 16 per warp row
+  static constexpr int TS = DP <= 32  ? 64        // streamed rows per tile
+                          : DP == 64  ? (kF32 ? 32 : 64)
+                          : DP == 128 ? (KV || kF32 ? 32 : 64)
+                                      : (kF32 ? 16 : 32);
+  // warps splitting the output columns and the d-reduction of s1, s2 (d=256)
+  static constexpr int WN = DP == 256 ? 2 : 1;
+  static constexpr int DPW = DP / WN;             // columns a warp owns
+  static constexpr int kWarps = TR / 16 * WN;
+  static constexpr int kThreads = kWarps * 32;
+  // blocks an SM the registers must allow: bf16 at d <= 64 fits 3 by shared
+  // memory (capping its registers to match was faster on one H100), fp32 at
+  // d=64 fits 2
+  static constexpr int kMinBlocks = !kF32 && DP <= 64 ? 3 : DP == 64 ? 2 : 1;
+  static constexpr int kPad = 16 / sizeof(E);     // 16 bytes a row
+  static constexpr int kStride = DP + kPad;
+  static constexpr int kRTile = TR * kStride;     // elements
+  static constexpr int kSTile = TS * kStride;
+  // fp32 at d <= 128: each streamed tile is split once into {hi, lo} pairs
+  // (row stride kP2 pairs), so the warps' B operands need no conversion; its
+  // copy lands in one staging tile, refilled once it is split
+  static constexpr bool kPreSplit = kF32 && DP <= 128;
+  static constexpr int kStages = kPreSplit ? 1 : 2;
+  static constexpr int kP2 = DP + 4;
+  static constexpr int kSplitTile = kPreSplit ? TS * kP2 : 0;   // float2
+  // a warp's partial s1, s2 (16 x TS fp32 each), read by its partner (WN = 2)
+  static constexpr int kXchg = WN > 1 ? kWarps * 2 * 16 * TS : 0;
+  // R1, R2, staged T1, T2, split T1, T2; lse and D of two tiles' rows (dK/dV)
+  static constexpr size_t kSmem = (2 * kRTile + 2 * kStages * kSTile) * sizeof(E) +
+                                  2 * kSplitTile * sizeof(float2) +
+                                  ((KV ? 4 * TS : 0) + kXchg) * sizeof(float);
+};
+
+// s[j] += R (this warp's 16 rows) . T (rows 8j .. 8j+7)^T over KW columns
+template <int KW, int TS, int STRIDE, int TST>
+__device__ __forceinline__ void tile_scores(float (&s)[TS / 8][4], const bf16* r,
+                                            const bf16* t, int lane) {
+  const uint32_t a_base =
+      smem_u32(r) + (((lane & 7) + 8 * ((lane >> 3) & 1)) * STRIDE + 8 * (lane >> 4)) * 2;
+  const uint32_t b_base =
+      smem_u32(t) + (((lane & 7) + 8 * (lane >> 4)) * STRIDE + 8 * ((lane >> 3) & 1)) * 2;
+#pragma unroll
+  for (int kk = 0; kk < KW / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a_base + kk * 32);
+#pragma unroll
+    for (int nb = 0; nb < TS / 16; ++nb) {
+      uint32_t bb[4];
+      ldmatrix_x4(bb, b_base + (nb * 16 * STRIDE + kk * 16) * 2);
+      mma_bf16(s[2 * nb], af, bb[0], bb[1]);
+      mma_bf16(s[2 * nb + 1], af, bb[2], bb[3]);
+    }
+  }
+}
+
+// a B operand of a TF32 product as hi and lo: split here from fp32, or as
+// split ahead into a {hi, lo} pair
+__device__ __forceinline__ void b_tf32(const float* t, int i, uint32_t& hi, uint32_t& lo) {
+  split_tf32(t[i], hi, lo);
+}
+__device__ __forceinline__ void b_tf32(const float2* t, int i, uint32_t& hi, uint32_t& lo) {
+  const float2 x = t[i];
+  hi = __float_as_uint(x.x);
+  lo = __float_as_uint(x.y);
+}
+
+// fp32 R (row stride RS), T of fp32 or {hi, lo} pairs (row stride TST)
+template <int KW, int TS, int RS, int TST, typename TB>
+__device__ __forceinline__ void tile_scores(float (&s)[TS / 8][4], const float* r,
+                                            const TB* t, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KW / 8; ++kk) {
+    const int c = kk * 8 + q;
+    uint32_t ah[4], al[4];
+    split_tf32(r[g * RS + c], ah[0], al[0]);
+    split_tf32(r[(g + 8) * RS + c], ah[1], al[1]);
+    split_tf32(r[g * RS + c + 4], ah[2], al[2]);
+    split_tf32(r[(g + 8) * RS + c + 4], ah[3], al[3]);
+    uint32_t bh[TS / 8][2], bl[TS / 8][2];
+#pragma unroll
+    for (int nb = 0; nb < TS / 8; ++nb) {
+      b_tf32(t, (nb * 8 + g) * TST + c, bh[nb][0], bl[nb][0]);
+      b_tf32(t, (nb * 8 + g) * TST + c + 4, bh[nb][1], bl[nb][1]);
+    }
+    mma_tf32x3(s, ah, al, bh, bl);
+  }
+}
+
+// acc[n] += A . T[:, 8n .. 8n+7], A (16 x TS) given as this warp's fp32
+// accumulator fragments a[TS/8][4], T the TS streamed rows from column `t` on
+template <int NO, int TS, int STRIDE>
+__device__ __forceinline__ void tile_accumulate(float (&acc)[NO][4], const float (&a)[TS / 8][4],
+                                                const bf16* t, int lane) {
+  const uint32_t b_base =
+      smem_u32(t) + (((lane & 7) + 8 * ((lane >> 3) & 1)) * STRIDE + 8 * (lane >> 4)) * 2;
+#pragma unroll
+  for (int kk = 0; kk < TS / 16; ++kk) {
+    uint32_t af[4];
+    af[0] = pack_bf16(a[2 * kk][0], a[2 * kk][1]);
+    af[1] = pack_bf16(a[2 * kk][2], a[2 * kk][3]);
+    af[2] = pack_bf16(a[2 * kk + 1][0], a[2 * kk + 1][1]);
+    af[3] = pack_bf16(a[2 * kk + 1][2], a[2 * kk + 1][3]);
+#pragma unroll
+    for (int nb = 0; nb < NO / 2; ++nb) {
+      uint32_t bb[4];
+      ldmatrix_x4_trans(bb, b_base + (kk * 16 * STRIDE + nb * 16) * 2);
+      mma_bf16(acc[2 * nb], af, bb[0], bb[1]);
+      mma_bf16(acc[2 * nb + 1], af, bb[2], bb[3]);
+    }
+  }
+}
+
+// The TF32 products' sum over the tile is taken in fresh fragments, four
+// column blocks at a time, and added to acc with one fp32 add: the tensor
+// cores' own accumulation rounds toward zero, and thousands of 3xTF32
+// products summed into one running fragment drift past the fp32 bar in dK
+// and dV (recurrentgemma's d=256 and h2o's training shapes).
+template <int NO, int TS, int TST, typename TB>
+__device__ __forceinline__ void tile_accumulate(float (&acc)[NO][4], const float (&a)[TS / 8][4],
+                                                const TB* t, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  constexpr int NG = NO < 4 ? NO : 4;
+#pragma unroll
+  for (int n0 = 0; n0 < NO; n0 += NG) {
+    float part[NG][4];
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TS / 8; ++kk) {
+      // k = q is streamed row 8kk + 2q (accumulator column 2q), k = q + 4 row 2q + 1
+      uint32_t ah[4], al[4];
+      split_tf32(a[kk][0], ah[0], al[0]);
+      split_tf32(a[kk][2], ah[1], al[1]);
+      split_tf32(a[kk][1], ah[2], al[2]);
+      split_tf32(a[kk][3], ah[3], al[3]);
+      const int row = (kk * 8 + 2 * q) * TST + g;
+      uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        b_tf32(t, row + (n0 + n) * 8, bh[n][0], bl[n][0]);
+        b_tf32(t, row + TST + (n0 + n) * 8, bh[n][1], bl[n][1]);
+      }
+      mma_tf32x3(part, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+  }
+}
+
+// rows [0, TS) of a staged fp32 tile (stride DP + 4) as {hi, lo} pairs (stride DP + 4)
+template <int TS, int DP, int NT>
+__device__ __forceinline__ void split_rows(float2* dst, const float* src, int tid) {
+#pragma unroll 4
+  for (int i = tid; i < TS * DP / 4; i += NT) {
+    const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(src + r * (DP + 4) + c);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    float4* out = reinterpret_cast<float4*>(dst + r * (DP + 4) + c);
+    out[0] = make_float4(__uint_as_float(h[0]), __uint_as_float(l[0]), __uint_as_float(h[1]),
+                         __uint_as_float(l[1]));
+    out[1] = make_float4(__uint_as_float(h[2]), __uint_as_float(l[2]), __uint_as_float(h[3]),
+                         __uint_as_float(l[3]));
+  }
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename E>
-__device__ __forceinline__ E from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// two adjacent gradient entries, rounded to E once
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
 
 struct BwdMask {
   int Sq, Sk, causal, has_window, window, has_softcap;
   float scale, softcap;
 };
-
-// P and dS of one (query row qi, key kj) from the raw dot products q.k and
-// dO.v, the row's lse and D
-__device__ __forceinline__ void bwd_entry(const BwdMask& m, int qi, int kj, float qk,
-                                          float dov, float lse_i, float d_i, float& p,
-                                          float& ds) {
-  p = 0.f;
-  ds = 0.f;
-  if (qi >= m.Sq || kj >= m.Sk) return;
-  float x = qk * m.scale, t = 0.f;
-  if (m.has_softcap) {
-    t = tanhf(x / m.softcap);
-    x = m.softcap * t;
-  }
-  bool vis = true;
-  if (m.causal) vis = vis && kj <= qi;
-  if (m.has_window) vis = vis && (qi - kj) < m.window;
-  if (lse_i < -1e38f) {                 // every key of the row masked: P = 1/Sk
-    p = 1.f / m.Sk;
-    return;
-  }
-  p = expf((vis ? x : kNegInf) - lse_i);
-  if (vis) ds = p * (dov - d_i) * (m.has_softcap ? 1.f - t * t : 1.f);
-}
-
-// rows [r0, r0 + T) of a (rows, D) matrix of E into a shared fp32 tile of
-// stride RS; rows past `rows` are zeros
-template <int D, int T, typename E>
-__device__ __forceinline__ void load_rows(float* dst, const E* __restrict__ src, int r0,
-                                          int rows, int tid) {
-  for (int i = tid; i < T * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = (r0 + r < rows) ? to_f(src[static_cast<size_t>(r0) * D + i]) : 0.f;
-  }
-}
 
 template <typename E>
 __global__ void flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dout,
@@ -797,253 +1016,244 @@ __global__ void flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restric
   if (lane == 0) delta[row] = s;
 }
 
-template <int D, typename E>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                      const E* __restrict__ v, const E* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      E* __restrict__ dk, E* __restrict__ dv, int H, int group,
-                      BwdMask mk, int skip_tiles, int heavy_first) {
-  using C = BwdCfg<D>;
-  constexpr int T = C::T, R = C::R, RS = C::RS, PS = C::PS, CPT = C::CPT;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + T * RS;
-  float* Qs = Vs + T * RS;
-  float* Os = Qs + T * RS;               // dO rows
-  float* Ps = Os + T * RS;               // P^T: keys x queries
-  float* Ss = Ps + T * PS;               // dS^T
-  float* Ls = Ss + T * PS;
-  float* Dl = Ls + T;
+// KV: block (b * Hkv + kv head, key tile); writes dK to g1 and dV to g0.
+// !KV: block (b * H + head, q tile); writes dQ to g1.
+template <int D, typename E, bool KV>
+__global__ void __launch_bounds__(BwdCfg<D, E, KV>::kThreads, BwdCfg<D, E, KV>::kMinBlocks)
+flash_bwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                 const E* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, E* __restrict__ g0, E* __restrict__ g1,
+                 int H, int group, BwdMask mk, int skip_tiles, int heavy_first) {
+  using C = BwdCfg<D, E, KV>;
+  constexpr int TR = C::TR, TS = C::TS, NS = TS / 8, NO = C::DPW / 8, NT = C::kThreads;
+  constexpr int STRIDE = C::kStride;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  E* r1 = reinterpret_cast<E*>(smem_raw);        // K (KV) or Q
+  E* r2 = r1 + C::kRTile;                        // V or dO
+  E* ts = r2 + C::kRTile;                        // stage st: T1 at ts + 2 st kSTile, T2 after
+  float2* sp = reinterpret_cast<float2*>(ts + 2 * C::kStages * C::kSTile);  // split T1, T2
+  float* ld = reinterpret_cast<float*>(sp + 2 * C::kSplitTile);   // KV: tile it's lse, D at
+                                                                   // (it & 1) 2 TS
+  float* xch = ld + (KV ? 4 * TS : 0);           // WN = 2: warp w's partial s1, s2
 
-  const int Hkv = H / group;
-  const int bkv = blockIdx.x;
-  const int b = bkv / Hkv, hk = bkv % Hkv;
-  const int kt = heavy_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int k0 = kt * T;
-  const int Sq = mk.Sq, Sk = mk.Sk;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t kv_off = static_cast<size_t>(bkv) * Sk * D;
-  load_rows<D, T, E>(Ks, k + kv_off, k0, Sk, tid);
-  load_rows<D, T, E>(Vs, v + kv_off, k0, Sk, tid);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp / C::WN, wc = warp % C::WN;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int Sq = mk.Sq, Sk = mk.Sk, Hkv = H / group;
+  const int r0 = (heavy_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * TR;
+  const int bx = blockIdx.x;
+  // KV: bx = b * Hkv + kv head; the streamed heads are b * H + (bx % Hkv) * group + hq
+  const size_t kv_off =
+      static_cast<size_t>(KV ? bx : (bx / H) * Hkv + (bx % H) / group) * Sk * D;
+  const size_t q_off = static_cast<size_t>(bx) * Sq * D;      // dQ launch only
+  const size_t head0 = KV ? static_cast<size_t>(bx / Hkv) * H + (bx % Hkv) * group : 0;
 
-  float acc_k[R][CPT], acc_v[R][CPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  int q_lo = 0, q_hi = Sq;
+  // the streamed range: q tiles of each head of the group (KV) or key tiles
+  int lo = 0, hi = KV ? Sq : Sk;
   if (skip_tiles) {
-    if (mk.causal) q_lo = k0;
-    if (mk.has_window) q_hi = min(Sq, k0 + T - 1 + mk.window);
+    if (KV) {
+      if (mk.causal) lo = r0;
+      if (mk.has_window) hi = min(Sq, r0 + TR - 1 + mk.window);
+    } else {
+      if (mk.causal) hi = min(Sk, r0 + TR);
+      if (mk.has_window) lo = max(0, r0 - mk.window + 1);
+    }
   }
-  for (int hq = 0; hq < group; ++hq) {
-    const size_t bh = static_cast<size_t>(b) * H + hk * group + hq;
-    const E* qp = q + bh * Sq * D;
-    const E* op = dout + bh * Sq * D;
-    for (int q0 = (q_lo / T) * T; q0 < q_hi; q0 += T) {
-      __syncthreads();                   // the previous tile's readers are done
-      load_rows<D, T, E>(Qs, qp, q0, Sq, tid);
-      load_rows<D, T, E>(Os, op, q0, Sq, tid);
-      for (int r = tid; r < T; r += kThreads) {
-        const bool in = q0 + r < Sq;
-        Ls[r] = in ? lse[bh * Sq + q0 + r] : 0.f;
-        Dl[r] = in ? delta[bh * Sq + q0 + r] : 0.f;
+  const int s_first = (lo / TS) * TS;
+  const int n_st = hi > s_first ? (hi - s_first + TS - 1) / TS : 0;
+  const int n_it = (KV ? group : 1) * n_st;
+
+  auto stream_head = [&](int it) { return KV ? head0 + it / n_st : 0; };
+  auto stream_row = [&](int it) { return s_first + (KV ? it % n_st : it) * TS; };
+  auto load_stream = [&](int it) {
+    const int st = it & 1, s0 = stream_row(it);
+    const uint32_t t1 = smem_u32(ts + 2 * (C::kStages > 1 ? st : 0) * C::kSTile);
+    const uint32_t t2 = t1 + C::kSTile * sizeof(E);
+    if constexpr (KV) {
+      const size_t bh = stream_head(it);
+      const size_t off = (bh * Sq + s0) * D;
+      load_tile<TS, D, NT, E>(t1, q + off, Sq - s0, tid);
+      load_tile<TS, D, NT, E>(t2, dout + off, Sq - s0, tid);
+      const uint32_t l = smem_u32(ld + st * 2 * TS);
+      for (int i = tid; i < TS; i += NT) {
+        const bool in = s0 + i < Sq;
+        const size_t row = bh * Sq + (in ? s0 + i : 0);
+        cp_async4(l + i * 4, lse + row, in);
+        cp_async4(l + (TS + i) * 4, delta + row, in);
       }
+    } else {
+      load_tile<TS, D, NT, E>(t1, k + kv_off + static_cast<size_t>(s0) * D, Sk - s0, tid);
+      load_tile<TS, D, NT, E>(t2, v + kv_off + static_cast<size_t>(s0) * D, Sk - s0, tid);
+    }
+  };
+
+  // the resident tiles, with the first streamed tile: one copy group
+  if constexpr (KV) {
+    load_tile<TR, D, NT, E>(smem_u32(r1), k + kv_off + static_cast<size_t>(r0) * D, Sk - r0,
+                            tid);
+    load_tile<TR, D, NT, E>(smem_u32(r2), v + kv_off + static_cast<size_t>(r0) * D, Sk - r0,
+                            tid);
+  } else {
+    load_tile<TR, D, NT, E>(smem_u32(r1), q + q_off + static_cast<size_t>(r0) * D, Sq - r0,
+                            tid);
+    load_tile<TR, D, NT, E>(smem_u32(r2), dout + q_off + static_cast<size_t>(r0) * D, Sq - r0,
+                            tid);
+  }
+  if (n_it > 0) load_stream(0);
+  cp_async_commit();
+
+  // this lane's two resident rows; the dQ launch's lse and D
+  const int row_a = r0 + wr * 16 + gq;
+  float d_r[2] = {0.f, 0.f}, lse_r[2] = {0.f, 0.f};
+  if constexpr (!KV) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = row_a + 8 * i;
+      if (qi < Sq) {
+        lse_r[i] = lse[static_cast<size_t>(bx) * Sq + qi];
+        d_r[i] = delta[static_cast<size_t>(bx) * Sq + qi];
+      }
+    }
+  }
+
+  float acc0[KV ? NO : 1][4], acc1[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (KV ? NO : 1); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[n][e] = 0.f;
+
+  const float scale2 = mk.scale * kLog2e, inv_sk = 1.f / Sk;
+  const E* r1w = r1 + wr * 16 * STRIDE;
+  const E* r2w = r2 + wr * 16 * STRIDE;
+  // one streamed tile: s1, s2, then P and dS, then the products. t1, t2: its
+  // T1, T2 as E (row stride STRIDE) or as split {hi, lo} pairs (kP2)
+  auto tile = [&](int it, const auto* t1, const auto* t2) {
+    constexpr int TST = sizeof(*t1) == sizeof(float2) ? C::kP2 : STRIDE;
+    const int s0 = stream_row(it);
+    const float* ls = ld + (it & 1) * 2 * TS;    // KV: this tile's lse, then D
+
+    float s1[NS][4], s2[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s1[j][e] = s2[j][e] = 0.f;
+    // with WN = 2 each warp of a pair reduces half of d, and the pair adds
+    // the halves (in either order the same bits)
+    const int kc = wc * C::DPW;
+    tile_scores<C::DPW, TS, STRIDE, TST>(s1, r1w + kc, t1 + kc, lane);
+    tile_scores<C::DPW, TS, STRIDE, TST>(s2, r2w + kc, t2 + kc, lane);
+    if constexpr (C::WN > 1) {
+      float* mine = xch + warp * 32 * TS;
+      const float* other = xch + (warp ^ 1) * 32 * TS;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mine[(j * 4 + e) * 32 + lane] = s1[j][e];
+          mine[((NS + j) * 4 + e) * 32 + lane] = s2[j][e];
+        }
       __syncthreads();
-
-      float qk[R][R], dov[R][R];         // keys ty*R+i x queries tx+16j
 #pragma unroll
-      for (int i = 0; i < R; ++i)
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-        for (int j = 0; j < R; ++j) qk[i][j] = dov[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float ka[R], va[R], qb[R], ob[R];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          ka[i] = Ks[(ty * R + i) * RS + d];
-          va[i] = Vs[(ty * R + i) * RS + d];
-        }
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          qb[j] = Qs[(tx + 16 * j) * RS + d];
-          ob[j] = Os[(tx + 16 * j) * RS + d];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < R; ++j) {
-            qk[i][j] = fmaf(qb[j], ka[i], qk[i][j]);
-            dov[i][j] = fmaf(ob[j], va[i], dov[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int qr = tx + 16 * j;
-          float p, ds;
-          bwd_entry(mk, q0 + qr, k0 + ty * R + i, qk[i][j], dov[i][j], Ls[qr], Dl[qr], p, ds);
-          Ps[(ty * R + i) * PS + qr] = p;
-          Ss[(ty * R + i) * PS + qr] = ds;
-        }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int qq = 0; qq < T; ++qq) {
-        float pv[R], sv[R];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          pv[i] = Ps[(ty * R + i) * PS + qq];
-          sv[i] = Ss[(ty * R + i) * PS + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int col = tx + 16 * c;
-          if (C::DP != D && col >= D) continue;
-          const float ov = Os[qq * RS + col], qv = Qs[qq * RS + col];
-#pragma unroll
-          for (int i = 0; i < R; ++i) {
-            acc_v[i][c] = fmaf(pv[i], ov, acc_v[i][c]);
-            acc_k[i][c] = fmaf(sv[i], qv, acc_k[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int kj = k0 + ty * R + i;
-    if (kj >= Sk) continue;
-    const size_t row = kv_off + static_cast<size_t>(kj) * D;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) {
-        dk[row + col] = from_f<E>(acc_k[i][c] * mk.scale);
-        dv[row + col] = from_f<E>(acc_v[i][c]);
-      }
-    }
-  }
-}
-
-template <int D, typename E>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                    const E* __restrict__ v, const E* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    E* __restrict__ dq, int H, int group, BwdMask mk, int skip_tiles,
-                    int heavy_first) {
-  using C = BwdCfg<D>;
-  constexpr int T = C::T, R = C::R, RS = C::RS, PS = C::PS, CPT = C::CPT;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Os = Qs + T * RS;               // dO rows
-  float* Ks = Os + T * RS;
-  float* Vs = Ks + T * RS;
-  float* Ss = Vs + T * RS;               // dS: queries x keys
-  float* Ls = Ss + T * PS;
-  float* Dl = Ls + T;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int Hkv = H / group;
-  const int qt = heavy_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * T;
-  const int Sq = mk.Sq, Sk = mk.Sk;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t q_off = static_cast<size_t>(bh) * Sq * D;
-  const size_t kv_off = static_cast<size_t>(b * Hkv + h / group) * Sk * D;
-  load_rows<D, T, E>(Qs, q + q_off, q0, Sq, tid);
-  load_rows<D, T, E>(Os, dout + q_off, q0, Sq, tid);
-  for (int r = tid; r < T; r += kThreads) {
-    const bool in = q0 + r < Sq;
-    Ls[r] = in ? lse[static_cast<size_t>(bh) * Sq + q0 + r] : 0.f;
-    Dl[r] = in ? delta[static_cast<size_t>(bh) * Sq + q0 + r] : 0.f;
-  }
-
-  float acc[R][CPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
-  int k_lo = 0, k_hi = Sk;
-  if (skip_tiles) {
-    if (mk.causal) k_hi = min(Sk, q0 + T);
-    if (mk.has_window) k_lo = max(0, q0 - mk.window + 1);
-  }
-  for (int k0 = (k_lo / T) * T; k0 < k_hi; k0 += T) {
-    __syncthreads();
-    load_rows<D, T, E>(Ks, k + kv_off, k0, Sk, tid);
-    load_rows<D, T, E>(Vs, v + kv_off, k0, Sk, tid);
-    __syncthreads();
-
-    float qk[R][R], dov[R][R];           // queries ty*R+i x keys tx+16j
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) qk[i][j] = dov[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[R], oa[R], kb[R], vb[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qa[i] = Qs[(ty * R + i) * RS + d];
-        oa[i] = Os[(ty * R + i) * RS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        kb[j] = Ks[(tx + 16 * j) * RS + d];
-        vb[j] = Vs[(tx + 16 * j) * RS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          qk[i][j] = fmaf(qa[i], kb[j], qk[i][j]);
-          dov[i][j] = fmaf(oa[i], vb[j], dov[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          s1[j][e] += other[(j * 4 + e) * 32 + lane];
+          s2[j][e] += other[((NS + j) * 4 + e) * 32 + lane];
         }
     }
+
+    // P and dS from this warp's 16 rows against the TS streamed rows; a tile
+    // the mask leaves whole skips the mask. Masked entries and entries past
+    // Sq or Sk take P = dS = 0; a row whose keys are all masked (lse below
+    // -1e38) P = 1/Sk and dS = 0
+    const int q_lo = KV ? s0 : r0 + wr * 16, q_n = KV ? TS : 16;
+    const int k_lo = KV ? r0 + wr * 16 : s0, k_n = KV ? 16 : TS;
+    const bool full = q_lo + q_n <= Sq && k_lo + k_n <= Sk &&
+                      (!mk.causal || k_lo + k_n - 1 <= q_lo) &&
+                      (!mk.has_window || q_lo + q_n - 1 - k_lo < mk.window);
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+    for (int j = 0; j < NS; ++j) {
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int qr = ty * R + i;
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * tq + (e & 1);  // streamed row within the tile
+        const float lse_v = KV ? ls[c] : lse_r[e >> 1];
+        const float dd = KV ? ls[TS + c] : d_r[e >> 1];
         float p, ds;
-        bwd_entry(mk, q0 + qr, k0 + tx + 16 * j, qk[i][j], dov[i][j], Ls[qr], Dl[qr], p, ds);
-        Ss[qr * PS + tx + 16 * j] = ds;
-      }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < T; ++kk) {
-      float sv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) sv[i] = Ss[(ty * R + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int col = tx + 16 * c;
-        if (C::DP != D && col >= D) continue;
-        const float kv = Ks[kk * RS + col];
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][c] = fmaf(sv[i], kv, acc[i][c]);
+        if (mk.has_softcap) {
+          const float t = tanhf(s1[j][e] * mk.scale / mk.softcap);
+          p = fast_exp2(fmaf(mk.softcap * t, kLog2e, -lse_v * kLog2e));
+          ds = p * (s2[j][e] - dd) * (1.f - t * t);
+        } else {
+          p = fast_exp2(fmaf(s1[j][e], scale2, -lse_v * kLog2e));
+          ds = p * (s2[j][e] - dd);
+        }
+        if (!full) {
+          const int rr = row_a + 8 * (e >> 1);
+          const int qi = KV ? s0 + c : rr, kj = KV ? rr : s0 + c;
+          const bool in = qi < Sq && kj < Sk;
+          bool vis = in;
+          if (mk.causal) vis = vis && kj <= qi;
+          if (mk.has_window) vis = vis && qi - kj < mk.window;
+          const bool dead = in && lse_v < -1e38f;
+          p = dead ? inv_sk : vis ? p : 0.f;
+          ds = vis && !dead ? ds : 0.f;
+        }
+        s1[j][e] = p;
+        s2[j][e] = ds;
       }
     }
-  }
 
+    if constexpr (KV) tile_accumulate<NO, TS, TST>(acc0, s1, t2 + wc * C::DPW, lane);
+    tile_accumulate<NO, TS, TST>(acc1, s2, t1 + wc * C::DPW, lane);
+  };
+
+  for (int it = 0; it < n_it; ++it) {
+    if constexpr (C::kPreSplit) {
+      cp_async_wait<0>();                        // tile it (and the resident tiles) landed
+      __syncthreads();                           // and every warp is done with tile it-1
+      split_rows<TS, C::DP, NT>(sp, ts, tid);
+      split_rows<TS, C::DP, NT>(sp + C::kSplitTile, ts + C::kSTile, tid);
+      __syncthreads();
+      if (it + 1 < n_it) {                       // the staging tile is free again
+        load_stream(it + 1);
+        cp_async_commit();
+      }
+      tile(it, static_cast<const float2*>(sp), static_cast<const float2*>(sp + C::kSplitTile));
+    } else {
+      __syncthreads();                           // every warp is done with stage (it+1)&1
+      if (it + 1 < n_it) {
+        load_stream(it + 1);
+        cp_async_commit();
+        cp_async_wait<1>();                      // tile it (and the resident tiles) landed
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const E* t1 = ts + 2 * (it & 1) * C::kSTile;
+      tile(it, t1, t1 + C::kSTile);
+    }
+  }
+  if (n_it == 0) cp_async_wait<0>();             // the resident tiles' copies
+
+  // dK = scale * acc1, dV = acc0 (rows: keys) or dQ = scale * acc1 (rows: queries)
+  const int n_rows = KV ? Sk : Sq;
+  E* out1 = g1 + (KV ? kv_off : q_off);
+  E* out0 = KV ? g0 + kv_off : nullptr;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + ty * R + i;
-    if (qi >= Sq) continue;
-    E* row = dq + q_off + static_cast<size_t>(qi) * D;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    if (row >= n_rows) continue;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) row[col] = from_f<E>(acc[i][c] * mk.scale);
+    for (int n = 0; n < NO; ++n) {
+      const int col = wc * C::DPW + n * 8 + 2 * tq;
+      if (C::DP != D && col >= D) continue;
+      const size_t at = static_cast<size_t>(row) * D + col;
+      store2(out1 + at, acc1[n][2 * i] * mk.scale, acc1[n][2 * i + 1] * mk.scale);
+      if constexpr (KV) store2(out0 + at, acc0[n][2 * i], acc0[n][2 * i + 1]);
     }
   }
 }
@@ -1051,12 +1261,13 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
 template <int D, typename E>
 int launch_bwd(const Args& a, const void* dout, const float* lse, float* delta, void* dq,
                void* dk, void* dv) {
-  using C = BwdCfg<D>;
+  using CK = BwdCfg<D, E, true>;
+  using CQ = BwdCfg<D, E, false>;
+  auto* kv_kernel = flash_bwd_kernel<D, E, true>;
+  auto* q_kernel = flash_bwd_kernel<D, E, false>;
   static std::atomic<int> allowed_kv[64], allowed_q[64];
-  cudaError_t err =
-      allow_smem(flash_bwd_dkdv_kernel<D, E>, static_cast<int>(C::kSmem), allowed_kv);
-  if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dq_kernel<D, E>, static_cast<int>(C::kSmem), allowed_q);
+  cudaError_t err = allow_smem(kv_kernel, static_cast<int>(CK::kSmem), allowed_kv);
+  if (err == cudaSuccess) err = allow_smem(q_kernel, static_cast<int>(CQ::kSmem), allowed_q);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = a.B * a.H * a.Sq;
   const E* g = static_cast<const E*>(dout);
@@ -1072,15 +1283,15 @@ int launch_bwd(const Args& a, const void* dout, const float* lse, float* delta, 
   const E* v = static_cast<const E*>(a.v);
   // causal: the key tiles with the most queries are the first ones, the q
   // tiles with the most keys the last ones; each grid starts with its heaviest
-  dim3 grid_kv(a.B * a.Hkv, (a.Sk + C::T - 1) / C::T);
-  flash_bwd_dkdv_kernel<D, E><<<grid_kv, kThreads, C::kSmem, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<E*>(dk), static_cast<E*>(dv), a.H, group, mk,
+  dim3 grid_kv(a.B * a.Hkv, (a.Sk + CK::TR - 1) / CK::TR);
+  kv_kernel<<<grid_kv, CK::kThreads, CK::kSmem, a.stream>>>(
+      q, k, v, g, lse, delta, static_cast<E*>(dv), static_cast<E*>(dk), a.H, group, mk,
       skip_rule(a), 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid_q(a.B * a.H, (a.Sq + C::T - 1) / C::T);
-  flash_bwd_dq_kernel<D, E><<<grid_q, kThreads, C::kSmem, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<E*>(dq), a.H, group, mk, skip_rule(a),
+  dim3 grid_q(a.B * a.H, (a.Sq + CQ::TR - 1) / CQ::TR);
+  q_kernel<<<grid_q, CQ::kThreads, CQ::kSmem, a.stream>>>(
+      q, k, v, g, lse, delta, nullptr, static_cast<E*>(dq), a.H, group, mk, skip_rule(a),
       a.heavy_first);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1100,11 +1311,12 @@ int launch_bwd_d(const Args& a, int D, const void* dout, const float* lse, float
 
 }  // namespace
 
-// The backward of either route. route: 0 = float32, 1 = bfloat16, the type of
-// q, k, v, o, dout and of dq, dk, dv. q, o, dout, dq (B,H,Sq,D); k, v, dk, dv
-// (B,Hkv,Sk,D); lse and delta (scratch for D = rowsum(dO * O)) (B,H,Sq) fp32;
-// all contiguous. Three launches on `stream`: the rowsum, dK/dV, dQ. Returns
-// the first CUDA error of a launch, else 0.
+// The backward of either route. route: 0 = float32 (tc_tf32x3), 1 = bfloat16
+// (tc_bf16), the type of q, k, v, o, dout and of dq, dk, dv. q, o, dout, dq
+// (B,H,Sq,D); k, v, dk, dv (B,Hkv,Sk,D); lse and delta (scratch for D =
+// rowsum(dO * O)) (B,H,Sq) fp32; all contiguous, q, k, v, o and dout 16-byte
+// aligned. Three launches on `stream`: the rowsum, dK/dV, dQ. Returns the
+// first CUDA error of a launch, else 0.
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int Hkv,

@@ -19,10 +19,12 @@ The kernel is the PyTorch op ``repro_torch::flash_attention``: the plain
 version on the CPU, the kernel on CUDA, a fake implementation for
 ``torch.export`` and an autograd formula. When a gradient will be taken the
 forward (either route) also writes each row's log-sum-exp in fp32, and the
-backward runs FlashAttention-2's algorithm in CUDA
+backward runs FlashAttention-2's algorithm in CUDA on the tensor cores
 (:func:`flash_attention_backward`, itself the op
-``repro_torch::flash_attention_backward`` with a fake): fp32 or bf16 in and
-out, fp32 arithmetic on CUDA cores, bf16 widened as it is loaded.
+``repro_torch::flash_attention_backward`` with a fake), on the route
+:data:`BWD_ROUTES` names for the dtype: bf16 on ``mma.sync`` with fp32 sums
+and P and dS rounded to bf16 before their products (``tc_bf16``), fp32 as
+three TF32 products per product (``tc_tf32x3``), which keeps the fp32 bar.
 """
 from __future__ import annotations
 
@@ -49,6 +51,12 @@ ROUTES = ("cuda_core", "tc_bf16")     # index = the route code the CUDA side tak
 #: slower; PERF.md)
 TC_TILES = (64, 64)
 CORE_TILES = (64, 64)
+#: the backward's route by dtype; the CUDA side takes 0 for fp32, 1 for bf16
+BWD_ROUTES = {torch.float32: "tc_tf32x3", torch.bfloat16: "tc_bf16"}
+#: rows of the backward's resident tiles (keys in the dK/dV launch, queries in
+#: the dQ launch), as compiled in csrc/flash_attention.cu (BwdCfg::TR): each
+#: launch has one block row per tile of them
+BWD_ROWS = 64
 _count_lock = threading.Lock()
 
 
@@ -264,8 +272,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors run :func:`flash_attention_backward_plain` (``out`` and
     ``lse`` unused); other tensors go through the PyTorch op
     ``repro_torch::flash_attention_backward``: on CUDA it launches the
-    backward kernels (fp32 or bf16; the gradients in the inputs' dtype),
-    counted in ``flash_attention_backward.launches``; on meta and fake
+    backward kernels (fp32 or bf16, contiguous and 16-byte aligned; the
+    gradients in the inputs' dtype), counted in
+    ``flash_attention_backward.launches`` and per route (:data:`BWD_ROUTES`)
+    in ``flash_attention_backward.launches_by_route``; on meta and fake
     tensors its fake implementation gives the shapes.
     """
     _check_args(q, k, v)
@@ -298,8 +308,11 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     Hkv, Sk = k.shape[1], k.shape[2]
     if not all(t.is_contiguous() for t in (q, k, v, out, lse)):
         raise ValueError("q, k, v, out and lse must be contiguous")
-    if -(-max(Sq, Sk) // 32) > 65535:
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("the backward takes 16-byte aligned q, k, v, out and dout")
+    if -(-max(Sq, Sk) // BWD_ROWS) > 65535:
         raise ValueError(f"Sq {Sq} / Sk {Sk} exceed the grid limit")
+    route = BWD_ROUTES[q.dtype]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     with on_device(q.device):
@@ -307,7 +320,7 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
         status = _backward_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Hkv, Sq, Sk, d, ROUTES.index(plan(q.dtype, d, Sq, causal).route),
+            B, H, Hkv, Sq, Sk, d, int(q.dtype == torch.bfloat16),
             int(causal), float(scale), int(causal),
             int(window is not None), int(window) if window is not None else 0,
             int(softcap is not None), float(softcap) if softcap is not None else 0.0,
@@ -315,6 +328,7 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     check(status, "flash_attention_backward")
     with _count_lock:
         flash_attention_backward.launches += 1
+        flash_attention_backward.launches_by_route[route] += 1
     return dq, dk, dv
 
 
@@ -357,3 +371,4 @@ flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention.launches_by_pass = dict.fromkeys(("forward", "recompute"), 0)
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_by_route = dict.fromkeys(BWD_ROUTES.values(), 0)

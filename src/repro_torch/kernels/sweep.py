@@ -25,6 +25,12 @@ call shorter than its wrapper's host work reads the host's pace). Since it
 calls nothing else of the package, the same file, copied into an earlier
 tree's ``repro_torch/kernels/``, times that tree's kernels on the same clocks.
 
+``--backward`` times the flash_attention backward at the training shapes
+phase 6 times (qwen1.5-0.5b B4 H16/16, qwen3-1.7b H16/8 d=128,
+recurrentgemma's local H10/1 d=256 with its window, S=1024-2560), in fp32
+and bf16: the whole call and, from ``torch.profiler``, each of its three
+launches (the rowsum, dK/dV, dQ) and the dK/dV launch's blocks.
+
 Prints one JSON line per measurement and the card's name and power limit;
 needs a card.
 """
@@ -45,8 +51,11 @@ from repro_torch.kernels.diag_recurrence import ops as rec
 from repro_torch.kernels.fleet_scan.ops import BYTES_PER_ARRIVAL
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-#: dense, per the data sheet (float64 outside the tensor cores)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.float64: 34e12}
+#: dense, per the data sheet: bf16 and TF32 on the tensor cores, float32 and
+#: float64 on the CUDA cores. A kernel that computes fp32 as three TF32
+#: products a product (3xTF32) is bound by ``3 * ops`` at the "tf32" rate
+PEAK_FLOPS = {torch.bfloat16: 989e12, "tf32": 494.7e12, torch.float32: 67e12,
+              torch.float64: 34e12}
 PRIME_CYCLES = 3_000_000       # sleep ahead of each timed run: ~1.7 ms at 1.75 GHz
 L2_SPAN = 4                    # a cold rotation moves this many L2 sizes between reuses
 
@@ -92,9 +101,10 @@ def cold_copies(make, nbytes: int, l2: int) -> list:
     return [make() for _ in range(max(2, -(-L2_SPAN * l2 // nbytes)))]
 
 
-def bound_ms(moved: int, ops: int, dtype: torch.dtype):
+def bound_ms(moved: int, ops: int, dtype):
     """(ms, "bytes" or "operations"): the larger of ``moved`` bytes over the
-    memory rate and ``ops`` operations over the peak rate for ``dtype``."""
+    memory rate and ``ops`` operations over the peak rate for ``dtype`` (a
+    key of :data:`PEAK_FLOPS`)."""
     return max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
                (ops / PEAK_FLOPS[dtype] * 1e3, "operations"))
 
@@ -129,6 +139,15 @@ def flash_backward_work(q, k, causal, window):
     pairs = sum(max(0, h - l) for l, h in zip(lo, hi))
     moved = q.element_size() * (4 * B * H * Sq * d + 4 * B * Hkv * Sk * d) + 4 * B * H * Sq
     return moved, 10 * d * pairs * B * H
+
+
+def flash_backward_bound_ms(moved: int, ops: int, dtype: torch.dtype):
+    """``bound_ms`` of the flash backward on the units its route runs on:
+    bf16 products at the bf16 rate; fp32 as three TF32 products a product
+    (``tc_tf32x3``) at the TF32 rate."""
+    if dtype == torch.float32:
+        return bound_ms(moved, 3 * ops, "tf32")
+    return bound_ms(moved, ops, dtype)
 
 
 def fleet_scan_work(offsets):
@@ -315,12 +334,58 @@ def sweep_recurrence(device, rows: list) -> None:
             del a, b, h0
 
 
+#: label -> (B, H, Hkv, S, d, window): causal training attention
+BACKWARD_CASES = {"qwen1.5-0.5b": (4, 16, 16, 1024, 64, None),
+                  "qwen3-1.7b": (1, 16, 8, 1024, 128, None),
+                  "recurrentgemma local": (1, 10, 1, 2560, 256, 2048)}
+
+
+def time_backward(device, rows: list) -> None:
+    """The flash backward's call and its launches' device time (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention.ops import BWD_ROWS, flash_attention_backward
+    gen = torch.Generator(device=device).manual_seed(8)
+    for (label, (B, H, Hkv, S, d, window)), dtype in itertools.product(
+            BACKWARD_CASES.items(), (torch.float32, torch.bfloat16)):
+        q = torch.randn((B, H, S, d), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((B, Hkv, S, d), generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, True, window, None,
+                                                         d ** -0.5, True)
+
+        def call():
+            return flash_attention_backward(q, k, v, out, lse, dout, window=window)
+
+        ms = cuda_ms(call)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        launches = {}
+        for e in prof.key_averages():
+            name = ("rowsum" if "dot_kernel" in e.key else "dK/dV" if "true" in e.key
+                    else "dQ" if "false" in e.key else None)
+            if name and e.count:
+                launches[name] = e.device_time_total / e.count / 1e3
+        moved, ops = flash_backward_work(q, k, True, window)
+        row = {"kernel": "flash_attention_backward", "shape": label,
+               "dtype": str(dtype).split(".")[1], "ms": ms, "launch_ms": launches,
+               "dkdv_blocks": B * Hkv * -(-S // BWD_ROWS),
+               "bound_ms": flash_backward_bound_ms(moved, ops, dtype)[0]}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del q, k, v, dout, out, lse
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--main", action="store_true",
                     help="time both kernels at the main paths' shapes on three clocks")
     ap.add_argument("--host", action="store_true",
                     help="the wrappers' host time per call")
+    ap.add_argument("--backward", action="store_true",
+                    help="the flash backward's launches at the training shapes")
     ap.add_argument("--out", help="also write the rows as JSON to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -331,6 +396,8 @@ def main(argv=None) -> int:
     rows: list = []
     if args.host:
         time_host(device, rows)
+    elif args.backward:
+        time_backward(device, rows)
     elif args.main:
         time_main(device, rows)
     else:

@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_attention.ops import (
     _flash_op,
     flash_attention_backward,
     flash_attention_backward_plain,
+    BWD_ROUTES,
+    BWD_ROWS,
     CORE_TILES,
     HEAD_DIMS,
     NEG_INF,
@@ -269,13 +271,19 @@ GRAD_ROWS = [
 ]
 
 
-def _emulated_backward(q, k, v, dout, causal, window, softcap, fwd=None):
+def _exact(t):
+    return t
+
+
+def _emulated_backward(q, k, v, dout, causal, window, softcap, fwd=None, mm=torch.matmul,
+                       rnd=_exact):
     """The backward kernels' algorithm (csrc/flash_attention.cu) in fp32
     tensor ops: lse from the op's forward, D = rowsum(dO * O), P = exp(s - lse)
     (1/Sk in a row whose keys are all masked), dS = P (dP - D) (1 - tanh^2)
     where the logit was not masked, dV = P^T dO and dK = scale dS^T Q summed
     over the group's heads, dQ = scale dS K. ``fwd``: the forward's (O, lse)
-    where another forward gave them."""
+    where another forward gave them; ``mm``: the matrix product the kernels'
+    units compute; ``rnd``: the rounding of P and dS before their products."""
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g, scale = H // Hkv, 1.0 / math.sqrt(d)
@@ -283,7 +291,8 @@ def _emulated_backward(q, k, v, dout, causal, window, softcap, fwd=None):
     assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
     qg = q.reshape(B, Hkv, g, Sq, d)
     og = dout.reshape(B, Hkv, g, Sq, d)
-    x = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * scale
+    kt, vt = k[:, :, None].transpose(-1, -2), v[:, :, None].transpose(-1, -2)
+    x = mm(qg, kt) * scale
     t = torch.tanh(x / softcap) if softcap else None
     if softcap:
         x = softcap * t
@@ -297,29 +306,58 @@ def _emulated_backward(q, k, v, dout, causal, window, softcap, fwd=None):
     s = torch.where(vis, x, torch.full_like(x, NEG_INF))
     p = torch.where(lse < -1e38, torch.full_like(s, 1.0 / Sk), torch.exp(s - lse))
     delta = (dout * out).sum(-1).reshape(B, Hkv, g, Sq, 1)
-    dp = torch.einsum("bhgqd,bhkd->bhgqk", og, v)
+    dp = mm(og, vt)
     ds = p * (dp - delta) * ((1 - t * t) if softcap else 1.0)
     ds = torch.where(vis & (lse > -1e38), ds, torch.zeros_like(ds))
-    dq = scale * torch.einsum("bhgqk,bhkd->bhgqd", ds, k).reshape(B, H, Sq, d)
-    dk = scale * torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, og)
+    p, ds = rnd(p), rnd(ds)
+    dq = scale * mm(ds, k[:, :, None]).reshape(B, H, Sq, d)
+    dk = scale * mm(ds.transpose(-1, -2), qg).sum(2)
+    dv = mm(p.transpose(-1, -2), og).sum(2)
     return dq, dk, dv
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, to nearest, ties
+    away from zero (the low 13 bits of the fp32 pattern cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32x3_mm(a, b):
+    """The fp32 route's products (3xTF32): each operand split into hi =
+    tf32(x) and lo = tf32(x - hi); lo.hi + hi.lo, then hi.hi, summed in fp32
+    (the dropped lo.lo is below 2^-22 of a product)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _emulated_tf32x3_backward(q, k, v, dout, causal, window, softcap):
+    """The backward kernels on fp32 (``E`` = float): every product of
+    :func:`_emulated_backward` on the tensor cores as three TF32 products."""
+    return _emulated_backward(q, k, v, dout, causal, window, softcap, mm=_tf32x3_mm)
+
+
+def _grad_case(B, H, Hkv, Sq, Sk, d, causal, window, cap):
+    """fp32 q, k, v, dout from a seed of the shape, and JAX's gradient of its
+    oracle ``attention_ref`` at them."""
+    rng = np.random.default_rng(B * 1000 + Sq * 10 + Sk)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in
+              ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d), (B, H, Sq, d))]
+    opts = dict(causal=causal, window=window, softcap=cap)
+    _, vjp = jax.vjp(lambda *t: attention_ref(*t, **opts), *map(jnp.asarray, arrays[:3]))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(arrays[3]))]
+    return [torch.from_numpy(a) for a in arrays], opts, want
 
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,d,causal,window,cap", GRAD_ROWS)
 def test_backward_algorithm_matches_autograd_and_jax(B, H, Hkv, Sq, Sk, d, causal, window,
                                                      cap):
-    """The algorithm the CUDA backward runs (emulated), the op's CPU
-    backward (autograd through the plain version) and JAX's gradient of
-    its oracle ``attention_ref`` agree: each of dq, dk, dv within 1e-4 of
-    its largest |entry|."""
-    rng = np.random.default_rng(B * 1000 + Sq * 10 + Sk)
-    arrays = [rng.standard_normal(s).astype(np.float32) for s in
-              ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d), (B, H, Sq, d))]
-    q, k, v, dout = (torch.from_numpy(a) for a in arrays)
-    opts = dict(causal=causal, window=window, softcap=cap)
-    _, vjp = jax.vjp(lambda *t: attention_ref(*t, **opts), *map(jnp.asarray, arrays[:3]))
-    want = [np.asarray(g) for g in vjp(jnp.asarray(arrays[3]))]
+    """The algorithm the CUDA backward runs (emulated in exact fp32), the
+    op's CPU backward (autograd through the plain version) and JAX's
+    gradient of its oracle ``attention_ref`` agree: each of dq, dk, dv within
+    1e-4 of its largest |entry|."""
+    (q, k, v, dout), opts, want = _grad_case(B, H, Hkv, Sq, Sk, d, causal, window, cap)
     qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
     through_op = torch.autograd.grad(flash_attention(*qkv, **opts), qkv, dout)
     emulated = _emulated_backward(q, k, v, dout, causal, window, cap)
@@ -330,15 +368,39 @@ def test_backward_algorithm_matches_autograd_and_jax(B, H, Hkv, Sq, Sk, d, causa
             assert float(np.abs(to_f32(got) - w).max()) <= bound, name
 
 
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,d,causal,window,cap", GRAD_ROWS + [
+    (1, 4, 2, 256, 256, 128, True, None, 50.0),  # qwen3's d=128, g=2, a long reduction
+    (1, 2, 1, 160, 160, 256, True, 64, None),    # recurrentgemma's d=256 with a window
+])
+def test_tf32x3_backward_matches_jax_grad(B, H, Hkv, Sq, Sk, d, causal, window, cap):
+    """The fp32 route's numerics (3xTF32 products, emulated) keep the fp32
+    bar: each of dq, dk, dv within 1e-4 of its largest |entry| of JAX's
+    gradient of ``attention_ref``. One TF32 product alone would not (checked
+    at the same bar, it must miss it somewhere in dq, dk or dv)."""
+    (q, k, v, dout), opts, want = _grad_case(B, H, Hkv, Sq, Sk, d, causal, window, cap)
+    got = _emulated_tf32x3_backward(q, k, v, dout, causal, window, cap)
+    for name, w, g in zip("qkv", want, got):
+        assert torch.isfinite(g).all(), name
+        bound = 1e-4 * max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(to_f32(g) - w).max()) <= bound, name
+    one = _emulated_backward(q, k, v, dout, causal, window, cap,
+                             mm=lambda a, b: _tf32(a) @ _tf32(b))
+    misses = [float(np.abs(to_f32(g) - w).max()) / max(float(np.abs(w).max()), 1e-30)
+              for w, g in zip(want, one)]
+    assert max(misses) > 1e-4, misses
+
+
 def _emulated_bf16_backward(q, k, v, dout, causal, window, softcap):
     """The backward kernels on bf16 (csrc/flash_attention.cu, ``E`` =
-    bf16): q, k, v, O and dO widened to fp32 as they are loaded, the fp32
-    algorithm of :func:`_emulated_backward` on them (D from the bf16 O, lse
-    from the bf16 forward), each gradient rounded to bf16 once."""
+    bf16): products of the bf16 q, k, v, O and dO on the tensor cores with
+    fp32 sums (:func:`_emulated_backward` on them widened, D from the bf16
+    O, lse from the bf16 forward), P and dS rounded to bf16 before their
+    products, each gradient rounded to bf16 once."""
     out, lse = _flash_op(q, k, v, causal, window, softcap, 1.0 / math.sqrt(q.shape[3]), True)
     assert out.dtype == torch.bfloat16
     grads = _emulated_backward(*(t.float() for t in (q, k, v, dout)), causal, window,
-                               softcap, fwd=(out.float(), lse))
+                               softcap, fwd=(out.float(), lse),
+                               rnd=lambda t: t.bfloat16().float())
     return [g.to(torch.bfloat16) for g in grads]
 
 
@@ -383,6 +445,43 @@ def test_bf16_backward_matches_jax_grad_of_the_reference_attention(B, H, Hkv, S,
         for got in gots:
             assert got.dtype == torch.bfloat16
             assert float(np.abs(to_f32(got) - w).max()) <= bound, name
+
+
+def test_backward_routes_by_dtype_and_cpu_calls_count_none():
+    """The backward's route is its dtype's (bf16 on mma.sync, fp32 as
+    3xTF32), counted per route; a CPU call runs the plain version and counts
+    no launch. Its grid check uses the kernels' resident rows (16 a warp)."""
+    assert BWD_ROUTES == {torch.float32: "tc_tf32x3", torch.bfloat16: "tc_bf16"}
+    assert set(flash_attention_backward.launches_by_route) == set(BWD_ROUTES.values())
+    assert BWD_ROWS % 16 == 0
+    before = (flash_attention_backward.launches,
+              dict(flash_attention_backward.launches_by_route))
+    for dtype in BWD_ROUTES:
+        q = torch.randn(1, 2, 8, 32).to(dtype)
+        dq, dk, dv = flash_attention_backward(q, q, q, None, None, q)
+        assert dq.dtype == dtype and dk.shape == q.shape
+    assert (flash_attention_backward.launches,
+            flash_attention_backward.launches_by_route) == before
+
+
+def test_backward_bounds_are_those_of_the_units_each_route_runs_on():
+    """The bounds phase 6 states for the backward at qwen1.5-0.5b's training
+    shape (B4 H16 S1024 d64, causal): five products of 2*d flops per pair;
+    bf16 at 989 TFLOP/s; fp32 as three TF32 products a product at 494.7
+    TFLOP/s (0.130 ms), with the CUDA cores' 67 TFLOP/s (0.321 ms) beside."""
+    from repro_torch.kernels.sweep import PEAK_FLOPS, bound_ms, flash_backward_work
+    with torch.device("meta"):
+        q = torch.empty(4, 16, 1024, 64)
+        qb = q.to(torch.bfloat16)
+    moved, ops = flash_backward_work(q, q, True, None)
+    assert ops == 10 * 64 * 4 * 16 * (1024 * 1025 // 2)
+    assert PEAK_FLOPS["tf32"] == 494.7e12
+    tf32, core = bound_ms(moved, 3 * ops, "tf32"), bound_ms(moved, ops, torch.float32)
+    assert tf32[1] == core[1] == "operations"
+    assert round(tf32[0], 3) == 0.130 and round(core[0], 4) == 0.3208
+    moved_b, ops_b = flash_backward_work(qb, qb, True, None)
+    assert ops_b == ops and 2 * moved_b == moved + 4 * 4 * 16 * 1024   # lse stays fp32
+    assert round(bound_ms(moved_b, ops_b, torch.bfloat16)[0], 4) == 0.0217
 
 
 def test_backward_fake_takes_bf16():

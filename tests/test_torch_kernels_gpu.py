@@ -369,7 +369,8 @@ def test_flash_attention_backward_matches_plain():
     """The backward kernels against torch.autograd.grad through the plain
     version: dq, dk, dv each within 1e-4 of its largest |entry|, reached
     through autograd (one forward with the rows' log-sum-exp, one backward
-    launch, counted) and through the wrapper directly."""
+    launch, counted, on the 3xTF32 tensor-core route) and through the
+    wrapper directly."""
     dev = _card()
     gen = torch.Generator(device="cpu").manual_seed(21)
     for (B, H, Hkv, Sq, Sk, d, causal, window, cap) in FLASH_GRAD_ROWS:
@@ -378,11 +379,14 @@ def test_flash_attention_backward_matches_plain():
         dout = torch.randn((B, H, Sq, d), generator=gen).to(dev)
         opts = dict(causal=causal, window=window, softcap=cap)
         fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+        by_route = dict(flash_attention_backward.launches_by_route)
         out = flash_attention(q, k, v, **opts)
         grads = torch.autograd.grad(out, (q, k, v), dout)
         torch.cuda.synchronize()
         assert flash_attention.launches == fwd + 1
         assert flash_attention_backward.launches == bwd + 1
+        assert flash_attention_backward.launches_by_route == {
+            **by_route, "tc_tf32x3": by_route["tc_tf32x3"] + 1}
         ref = flash_attention_backward_plain(q, k, v, dout, **opts)
         for name, g, r in zip("qkv", grads, ref):
             assert torch.isfinite(g).all(), name
@@ -425,16 +429,20 @@ BF16_GRAD_TOL = 2e-2    # of the largest |gradient| in each of dq, dk, dv: bf16'
 def test_flash_attention_bf16_backward_matches_plain():
     """bf16 on the card: the tensor-core forward's rows' log-sum-exp against
     the plain one (fp32 logits of the same bf16 inputs; a row whose keys are
-    all masked below -1e38 in both), and the bf16 backward kernels against
+    all masked below -1e38 in both), and the bf16 backward kernels (products
+    on the tensor cores, P and dS rounded to bf16) against
     torch.autograd.grad through the plain version (products in fp32,
     gradients rounded to bf16 once): dq, dk, dv in bf16, each within 2e-2 of
     its largest |entry|, reached through autograd (one launch each way,
-    counted) and through the wrapper."""
+    counted, the backward's on the tc_bf16 route) and through the wrapper,
+    bitwise alike."""
     from repro_torch.kernels.flash_attention.ops import _flash_op, _plain_scores
     dev = _card()
     gen = torch.Generator(device="cpu").manual_seed(23)
     for (B, H, Hkv, Sq, Sk, d, causal, window, cap) in FLASH_GRAD_ROWS + [
-            (4, 16, 16, 1024, 1024, 64, True, None, None)]:      # qwen1.5's training shape
+            (4, 16, 16, 1024, 1024, 64, True, None, None),       # qwen1.5's training shape
+            (2, 10, 1, 640, 640, 256, True, 256, None),          # d=256, g=10, window
+            (2, 16, 8, 512, 512, 128, True, None, None)]:        # qwen3's d=128, GQA 16/8
         q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
                    for shape in ((B, H, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
         dout = torch.randn((B, H, Sq, d), generator=gen).to(dev, torch.bfloat16)
@@ -448,10 +456,13 @@ def test_flash_attention_bf16_backward_matches_plain():
         assert live.numel() == 0 or float(live.abs().max()) <= 1e-4
         qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
         fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+        by_route = dict(flash_attention_backward.launches_by_route)
         grads = torch.autograd.grad(flash_attention(*qkv, **opts), qkv, dout)
         torch.cuda.synchronize()
         assert flash_attention.launches == fwd + 1
         assert flash_attention_backward.launches == bwd + 1
+        assert flash_attention_backward.launches_by_route == {
+            **by_route, "tc_bf16": by_route["tc_bf16"] + 1}
         out, lse = _flash_op(q, k, v, causal, window, cap, d ** -0.5, True)
         direct = flash_attention_backward(q, k, v, out, lse, dout, **opts)
         ref = flash_attention_backward_plain(q, k, v, dout, **opts)
