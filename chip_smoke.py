@@ -123,13 +123,21 @@ families, and checks them:
    memory and seconds are printed; a failing rank fails the phase;
 19. the simulation track: (a) fleet_scan against its plain version (run on
    the host, where it serves), bitwise on all six outputs, over groups of
-   1, 2, 63, 64, 65, 128 and 10^4 / 10^5 arrivals under a tight and a loose
-   keep-alive, and no DFMA in its SASS; (b) azure_scale_xl (10.5 M
+   1, 2, 63, 64, 65, 128, S - 1, S, S + 1, 2S + 1 (S the kernel's segment)
+   and 10^4 / 10^5 arrivals under a tight and a loose keep-alive, and a group
+   of 10^4 arrivals queued throughout, at the default segment and warm-up and
+   at segment 64 without warm-up: pass 2 must rewrite arrivals on some batch
+   (segments, rounds and repaired arrivals are printed beside the times), the
+   all-queued group within 2x the one-thread-a-group kernel's recorded time,
+   and no DFMA in
+   its SASS; (b) azure_scale_xl (10.5 M
    invocations, 2,000 Zipf functions, 4 workers, affinity) with every group
    capped at one instance, through ``scenario.run`` with
    ``engine="fleet_vec"``: the scan on the card against the numpy solver,
    equal sha256 of the sample buffers and equal counters, for warmswap and
-   prebaking, with both runs' wall seconds and the kernel's device time;
+   prebaking, with both runs' wall seconds, the kernel's device time, its
+   share of the bytes bound and the longest segment's chain floor; then
+   one method's scan run under cProfile, its top ten entries printed;
    (c) page_headline (smoke) through ``fleet`` and ``fleet_vec`` (scan on
    the card): equal, and the dependency-loading speedup in 2.2-3.2;
    sharing_fig7's memory saving; (d) the paper's page model's predicted
@@ -285,11 +293,15 @@ BWD_TIMED = [("qwen1.5-0.5b", "bfloat16", TRAIN_SHAPE[0]),
              ("qwen1.5-0.5b", "float32", TRAIN_SHAPE[0]),
              ("qwen3-1.7b", "float32", 1), ("recurrentgemma local", "float32", 1)]
 SCENARIOS = os.path.join(ROOT, "benchmarks", "scenarios")
-#: 19a: keep-alive (min) -> group lengths; around the reference's pad buckets
-#: (powers of two from 64), and one long group
-SCAN_CHECK = {"tight": (0.02, (1, 2, 63, 64, 65, 128, 10_000)),
-              "loose": (15.0, (1, 2, 63, 64, 65, 128, 100_000))}
-SCAN_SERVICE = (2.0, 1.39)  # warm_s, cold_s: a warm service longer than the mean gap
+#: 19a: fleet_scan's batches are kernels.sweep.SCAN_CHECK; each runs at the
+#: kernel's default segment and warm-up and at this cut (segment, warm-up = 0),
+#: where most guessed carries are wrong and pass 2's rounds all run
+SCAN_SMALL_CUT = (64, 0)
+#: the kernel's earlier design (one thread a group) took 182.399 ms over
+#: azure_scale_xl's cap=1 batch, whose longest group has 1,772,989 arrivals
+#: (PERF.md section 6, row 5; NVIDIA H100 80GB HBM3 at 700 W): its time a
+#: step of one group's chain
+GROUP_KERNEL_MS_PER_STEP = 182.399 / 1_772_989
 SCAN_OUTPUTS = ("sample", "wait", "start", "exp2", "cold", "queued")
 SIM_SAMPLES = ("latency_samples_s", "queue_wait_s", "sample_fn")
 SIM_COUNTERS = ("n_invocations", "n_cold", "n_warm", "n_queued", "n_workers",
@@ -2746,54 +2758,75 @@ def clock_max_hz() -> float:
     return float(smi.stdout.strip().splitlines()[0]) * 1e6
 
 
-def scan_group(rng, n: int):
-    """``n`` arrival times (min): bursts of gaps well under a warm service
-    (queues form), and one gap in ten long enough to outlive a keep-alive."""
-    import numpy as np
-    gaps = np.where(rng.random(n) < 0.1, rng.exponential(20.0, n), rng.exponential(0.03, n))
-    return np.cumsum(gaps)
-
-
 def check_fleet_scan(device, errs: dict) -> dict:
     """19a: fleet_scan against its plain version (run on the host, where it
-    serves), bitwise on all six outputs, and the SASS free of DFMA."""
-    import numpy as np
+    serves), bitwise on all six outputs, at the default segment and warm-up
+    and at ``SCAN_SMALL_CUT``; pass 2's rewrites shown to run; the
+    all-queued group within 2x the one-thread-a-group kernel; the SASS free
+    of DFMA."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.fleet_scan import fleet_scan, fleet_scan_plain
-    from repro_torch.kernels.sweep import bound_ms, cuda_ms, fleet_scan_work
+    from repro_torch.kernels.fleet_scan.ops import SEGMENT, WARMUP
+    from repro_torch.kernels.sweep import (SCAN_CHECK, bound_ms, cuda_ms, fleet_scan_split,
+                                           fleet_scan_work, scan_check_batch)
 
-    rng = np.random.default_rng(19)
-    warm_s, cold_s = SCAN_SERVICE
     out = {}
-    for label, (ka, lengths) in SCAN_CHECK.items():
-        t = torch.from_numpy(np.concatenate([scan_group(rng, n) for n in lengths]))
-        offsets = torch.from_numpy(np.r_[0, np.cumsum(lengths)].astype(np.int64))
-        args = (warm_s, cold_s, warm_s / 60.0, cold_s / 60.0, ka)
+    for label, (ka, groups) in SCAN_CHECK.items():
+        t, offsets, args = scan_check_batch(label)
         t_d, off_d = t.to(device), offsets.to(device)
-        got = [o.cpu() for o in fleet_scan(t_d, off_d, *args)]
         t0 = time.perf_counter()
         want = fleet_scan_plain(t, offsets, *args)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        for name, g, w in zip(SCAN_OUTPUTS, got, want):
-            expect(g.dtype == w.dtype and torch.equal(g, w),
-                   f"fleet_scan ({label} keep-alive): {name} differs from the plain "
-                   f"version")
+        cuts = {}
+        for segment, warmup in ((SEGMENT, WARMUP), SCAN_SMALL_CUT):
+            got = [o.cpu() for o in fleet_scan(t_d, off_d, *args, segment=segment,
+                                               warmup=warmup)]
+            for name, g, w in zip(SCAN_OUTPUTS, got, want):
+                expect(g.dtype == w.dtype and torch.equal(g, w),
+                       f"fleet_scan ({label}, segment {segment}, warm-up {warmup}): "
+                       f"{name} differs from the plain version")
+            cuts[f"{segment}/{warmup}"] = dict(fleet_scan.last)
         n_cold, n_queued = int(want[4].sum()), int(want[5].sum())
         n_warm = int(offsets[-1]) - n_cold - n_queued
-        expect(n_queued > 0 and n_warm > 0 and n_cold > len(lengths),
+        expect(n_queued > 0 and (n_warm > 0 and n_cold > len(groups) or label == "queued"),
                f"fleet_scan ({label}): {n_cold} cold starts, {n_queued} queued and "
                f"{n_warm} warm arrivals leave a branch untested")
-        moved, ops, longest = fleet_scan_work(offsets)
+        moved, ops, chain = fleet_scan_work(offsets)
         bound, by = bound_ms(moved, ops, torch.float64)
-        ms = cuda_ms(lambda: fleet_scan(t_d, off_d, *args), iters=5, per=2, warmup=1)
-        log(f"[19a] fleet_scan, keep-alive {ka} min, groups {list(lengths)}: bitwise "
-            f"equal to the plain version on all six outputs ({n_cold} cold, {n_queued} "
-            f"queued, {n_warm} warm); kernel {ms:.4f} ms, plain (host CPU) "
-            f"{plain_ms:.1f} ms, bound {bound:.5f} ms ({by})")
-        out[label] = {"lengths": list(lengths), "keep_alive_min": ka, "ms": ms,
+
+        def call():
+            return fleet_scan(t_d, off_d, *args)
+
+        ms = cuda_ms(call, iters=5, per=2, warmup=1)
+        split = fleet_scan_split(call)
+        longest = int(offsets.diff().max())
+        lengths = [n for _, n in groups]
+        log(f"[19a] fleet_scan, {label} batch, keep-alive {ka} min, groups {lengths}: "
+            f"bitwise equal to the plain version on all six outputs ({n_cold} cold, "
+            f"{n_queued} queued, {n_warm} warm) at segment/warm-up {list(cuts)}; "
+            f"segments, rounds, repaired arrivals, launches: "
+            + "; ".join(f"{c}: {v['segments']}, {v['rounds']}, {v['repaired']}, "
+                        f"{v['launches']}" for c, v in cuts.items())
+            + f"; call {ms:.4f} ms (pass 1 {split['pass1_ms']:.4f}, pass 2 "
+            f"{split['pass2_ms']:.4f} ms on the device), plain (host CPU) "
+            f"{plain_ms:.1f} ms, bound {bound:.5f} ms ({by}), longest segment's chain "
+            f"{chain} steps (longest group {longest})")
+        out[label] = {"lengths": lengths, "keep_alive_min": ka, "ms": ms, **split,
                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                      "longest": longest}
+                      "chain": chain, "longest": longest, "cuts": cuts}
+    expect(any(v["repaired"] > 0 for o in out.values() for v in o["cuts"].values()),
+           "fleet_scan's pass 2 rewrote no arrival on any batch: its repair never ran")
+    queued = out["queued"]
+    group_ms = GROUP_KERNEL_MS_PER_STEP * queued["longest"]
+    log(f"[19a] all-queued group of {queued['longest']} arrivals: {queued['ms']:.4f} ms "
+        f"against the one-thread-a-group kernel's {group_ms:.4f} ms from the record "
+        f"({GROUP_KERNEL_MS_PER_STEP * 1e6:.2f} ns a step, row 5 of PERF.md): "
+        f"{queued['ms'] / group_ms:.2f}x")
+    expect(queued["ms"] <= 2 * group_ms,
+           f"the all-queued group took {queued['ms']:.4f} ms, over twice the "
+           f"one-thread-a-group kernel's {group_ms:.4f} ms")
+    out["queued"]["group_kernel_ms"] = group_ms
     errs["fleet_scan"] = 0.0
     dfma = sass_count(build.library("fleet_scan"), "DFMA")
     dadd = sass_count(build.library("fleet_scan"), "DADD")
@@ -2804,11 +2837,27 @@ def check_fleet_scan(device, errs: dict) -> dict:
     return out
 
 
+def host_profile(fn, top: int = 10) -> dict:
+    """``fn()`` under cProfile: the ``top`` entries with the most cumulative
+    seconds and the ``top`` with the most own seconds, each as (function,
+    calls, cumulative s, own s)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    entries = [(f"{os.path.relpath(f, ROOT) if f.startswith(ROOT) else f}:{line}({name})",
+                calls, cum, own)
+               for (f, line, name), (_, calls, own, cum, _) in pstats.Stats(prof).stats.items()]
+    return {"cumulative": sorted(entries, key=lambda e: e[2], reverse=True)[:top],
+            "own": sorted(entries, key=lambda e: e[3], reverse=True)[:top]}
+
+
 def phase_fleet_scale(device, tag: str = "19b") -> dict:
     """19b: azure_scale_xl (2,000 Zipf functions over 32 images, two weeks, 4
     workers, affinity) with every group capped at one instance, through
     ``scenario.run`` with ``engine="fleet_vec"``: the scan on the card against
-    the numpy solver, bit for bit, for warmswap and prebaking."""
+    the numpy solver, bit for bit, for warmswap and prebaking; then one
+    method's scan run again under cProfile (the host code's first profile)."""
     import numpy as np
     import torch
     from repro_torch.core import fleet_vec as fv
@@ -2816,7 +2865,8 @@ def phase_fleet_scale(device, tag: str = "19b") -> dict:
     from repro_torch.core.scenario import RunOverrides, Scenario, run
     from repro_torch.core.simulator import COST_MODELS
     from repro_torch.core.traces import TRACE_GENERATORS
-    from repro_torch.kernels.sweep import bound_ms, cuda_ms, fleet_scan_work
+    from repro_torch.kernels.sweep import (bound_ms, cuda_ms, fleet_scan_split,
+                                           fleet_scan_work)
 
     # the subpackage, whose attribute fleet_vec looks the wrapper up in at each call
     fs = importlib.import_module("repro_torch.kernels.fleet_scan")
@@ -2855,10 +2905,14 @@ def phase_fleet_scale(device, tag: str = "19b") -> dict:
     expect(on_card.to_dict() == on_host.to_dict(), "azure_scale_xl results differ")
     args = kernel_calls[0][0]               # warmswap's batch, as the path gave it
     offsets = args[1].cpu().numpy()
-    moved, ops, longest = fleet_scan_work(offsets)
+    lengths = np.diff(offsets)
+    moved, ops, chain = fleet_scan_work(offsets)
     ms = cuda_ms(lambda: fs.fleet_scan(*args), iters=3, per=1, warmup=1)
+    split = fleet_scan_split(lambda: fs.fleet_scan(*args), n=3)
+    last = dict(fs.fleet_scan.last)
+    kernel_ms = split["pass1_ms"] + split["pass2_ms"]
     bound, by = bound_ms(moved, ops, torch.float64)
-    chain_ms = 2 * longest / clock_max_hz() * 1e3
+    chain_ms = 2 * chain / clock_max_hz() * 1e3
     solver_ms = sum(dt for _, dt in solver_calls[:groups]) * 1e3
     n_groups = len(offsets) - 1
     worst = max(float(np.abs(on_card.raw[m].latency_samples_s
@@ -2868,25 +2922,43 @@ def phase_fleet_scale(device, tag: str = "19b") -> dict:
            for m in scn.methods}
     log(f"[{tag}] azure_scale_xl at cap 1: {n_inv} invocations of {len(traces)} "
         f"functions (generated in {gen_s:.1f} s), {n_groups} groups, the longest "
-        f"{longest} arrivals; scan on the card == numpy solver for "
+        f"{int(lengths.max())} arrivals; scan on the card == numpy solver for "
         f"{', '.join(scn.methods)} (latency sha256 {sha}, every counter ==)")
     log(f"[{tag}] wall: scan run {scan_s:.2f} s, numpy run {numpy_s:.2f} s "
-        f"({len(scn.methods)} methods each); fleet_scan {ms:.3f} ms on the card "
-        f"({n_inv / (ms * 1e-3):.3e} arrivals/s; bound {bound:.4f} ms ({by}), serial "
-        f"chain floor {chain_ms:.3f} ms), numpy solver {solver_ms:.1f} ms on the host "
-        f"over the same groups; launches {counts}")
+        f"({len(scn.methods)} methods each); fleet_scan call {ms:.4f} ms on the card, "
+        f"its kernels {kernel_ms:.4f} ms (pass 1 {split['pass1_ms']:.4f}, pass 2 "
+        f"{split['pass2_ms']:.4f}; {n_inv / (ms * 1e-3):.3e} arrivals/s); bound "
+        f"{bound:.4f} ms ({by}): {bound / ms:.2%} of the call, {bound / kernel_ms:.2%} "
+        f"of the kernels; the longest segment's chain {chain} steps, floor {chain_ms:.5f} "
+        f"ms; segments {last['segments']}, rounds {last['rounds']}, repaired "
+        f"{last['repaired']}, launches {last['launches']}; numpy solver {solver_ms:.1f} "
+        f"ms on the host over the same groups; wrapper calls {counts}")
+    one = scn.with_overrides({"methods": scn.methods[:1]})
+    with scan_switch(True):
+        t0 = time.perf_counter()
+        top = host_profile(lambda: run(one, overrides=ov))
+        prof_s = time.perf_counter() - t0
+    for order in ("cumulative", "own"):
+        log(f"[{tag}] cProfile of the {scn.methods[0]} scan run ({prof_s:.2f} s under the "
+            f"profiler), the ten entries with the most {order} seconds (cumulative s, own "
+            f"s, calls):")
+        for name, calls, cum, own in top[order]:
+            log(f"[{tag}]   {cum:9.3f} {own:9.3f} {calls:>9} {name}")
     return {"counts": counts, "row": {
         "shape": f"azure_scale_xl cap=1 warmswap batch: {n_groups} groups, {int(offsets[-1])} "
-                 f"arrivals, longest {longest} (plain_ms: the numpy solver, "
-                 f"fleet_vec._solve_group, on the host over the same groups; "
-                 f"max_abs_err: scan vs numpy solver samples)",
-        "max_abs_err": worst, "ms": ms, "plain_ms": solver_ms, "bound_ms": bound,
-        "bound_by": by, "chain_floor_ms": chain_ms},
-        "summary": {"invocations": n_inv, "groups": n_groups, "longest": longest,
+                 f"arrivals, longest {int(lengths.max())}, {last['segments']} segments "
+                 f"(ms: the wrapper's call; kernel_ms: its kernels' device time; "
+                 f"plain_ms: the numpy solver, fleet_vec._solve_group, on the host "
+                 f"over the same groups; max_abs_err: scan vs numpy solver samples)",
+        "max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": solver_ms,
+        "bound_ms": bound, "bound_by": by, "chain_floor_ms": chain_ms},
+        "summary": {"invocations": n_inv, "groups": n_groups,
+                    "longest": int(lengths.max()), "segment_chain": chain,
                     "scan_run_s": scan_s, "numpy_run_s": numpy_s, "trace_s": gen_s,
-                    "kernel_ms": ms, "bound_ms": bound, "chain_floor_ms": chain_ms,
-                    "numpy_solver_ms": solver_ms,
-                    "arrivals_per_s": n_inv / (ms * 1e-3)}}
+                    "call_ms": ms, **split, "bound_ms": bound, "chain_floor_ms": chain_ms,
+                    "numpy_solver_ms": solver_ms, "fleet_scan_last": last,
+                    "arrivals_per_s": n_inv / (ms * 1e-3),
+                    "profile_s": prof_s, "profile_top": top}}
 
 
 def phase_fleet_band(device, tag: str = "19c") -> dict:
@@ -3592,6 +3664,7 @@ def main() -> int:
                                   f"the reference runs jax.lax.scan under XLA; plain_ms: the "
                                   f"plain version on the host CPU, where it serves)",
                  "max_abs_err": errs["fleet_scan"], "ms": check["ms"],
+                 "kernel_ms": check["pass1_ms"] + check["pass2_ms"],
                  "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
                  "bound_by": check["bound_by"]})
     rows.append({**scan, **scale.pop("row")})

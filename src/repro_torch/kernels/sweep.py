@@ -25,6 +25,15 @@ call shorter than its wrapper's host work reads the host's pace). Since it
 calls nothing else of the package, the same file, copied into an earlier
 tree's ``repro_torch/kernels/``, times that tree's kernels on the same clocks.
 
+``--fleet-scan`` times fleet_scan's segment length and warm-up (segment in
+128, 256, 512, 1024, 4096; warm-up in 0, 8, 32) on azure_scale_xl's
+warmswap batch at one instance a function (the scenario's own traces, as
+``fleet_vec`` hands them to the kernel) and on ``chip_smoke.py`` phase 19a's
+loose and all-queued batches: the call's device time, its kernels' device
+time from ``torch.profiler``, pass 2's rounds and repaired arrivals. Through
+the public wrapper only: copied into an earlier tree whose wrapper takes no
+segment, it times that tree's kernel once a batch.
+
 ``--backward`` times the flash_attention backward at the training shapes
 phase 6 times (qwen1.5-0.5b B4 H16/16, qwen3-1.7b H16/8 d=128,
 recurrentgemma's local H10/1 d=256 with its window, S=1024-2560), in fp32
@@ -48,7 +57,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as dec
 from repro_torch.kernels.diag_recurrence import ops as rec
-from repro_torch.kernels.fleet_scan.ops import BYTES_PER_ARRIVAL
+from repro_torch.kernels.fleet_scan import ops as scan_ops
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 #: dense, per the data sheet: bf16 and TF32 on the tensor cores, float32 and
@@ -150,14 +159,165 @@ def flash_backward_bound_ms(moved: int, ops: int, dtype: torch.dtype):
     return bound_ms(moved, ops, dtype)
 
 
-def fleet_scan_work(offsets):
-    """(bytes, operations, longest group) of one fleet_scan call over a CSR
-    batch: each arrival read once (8 B) and its four float64 and two uint8
-    outputs written once (42 B in all); five float64 operations per arrival
-    (a subtract, a multiply, three adds)."""
-    n = int(offsets[-1])
-    longest = int((offsets[1:] - offsets[:-1]).max()) if len(offsets) > 1 else 0
-    return BYTES_PER_ARRIVAL * n, 5 * n, longest
+def fleet_scan_work(offsets, segment=getattr(scan_ops, "SEGMENT", None),
+                    warmup=getattr(scan_ops, "WARMUP", 0)):
+    """(bytes, operations, chain) of one fleet_scan call over a CSR batch:
+    each arrival read once (8 B) and its four float64 and two uint8 outputs
+    written once (42 B in all); five float64 operations per arrival (a
+    subtract, a multiply, three adds); the longest chain of dependent steps
+    one thread runs in pass 1, a segment's arrivals and its warm-up (the
+    longest group where ``segment`` is None: one thread a group)."""
+    import numpy as np
+    lengths = np.diff(np.asarray(offsets, dtype=np.int64))
+    n = int(lengths.sum())
+    if segment is None or not len(lengths):
+        return scan_ops.BYTES_PER_ARRIVAL * n, 5 * n, int(lengths.max(initial=0))
+    per_group = -(-lengths // segment)
+    k = np.arange(int(per_group.sum())) - np.repeat(np.cumsum(per_group) - per_group,
+                                                    per_group)
+    L = np.repeat(lengths, per_group)
+    chain = np.minimum(L - k * segment, segment) + np.minimum(warmup, k * segment)
+    return scan_ops.BYTES_PER_ARRIVAL * n, 5 * n, int(chain.max(initial=0))
+
+
+#: 19a's batches: name -> (keep-alive (min), groups as (kind, arrivals)).
+#: "mixed": bursts of gaps under a warm service and one gap in ten that
+#: outlives a keep-alive; "queued": gaps under the warm service, so every
+#: arrival after the first queues. Lengths straddle the reference's pad
+#: buckets (powers of two from 64) and the kernel's segment; one long group.
+_AROUND = tuple(n for S in (getattr(scan_ops, "SEGMENT", 256),)
+                for n in (S - 1, S, S + 1, 2 * S + 1))
+SCAN_CHECK = {
+    "tight": (0.02, tuple(("mixed", n) for n in (1, 2, 63, 64, 65, 128, *_AROUND, 10_000))),
+    "loose": (15.0, tuple(("mixed", n) for n in (1, 2, 63, 64, 65, 128, *_AROUND, 100_000))),
+    "queued": (15.0, (("queued", 10_000),)),
+}
+SCAN_SERVICE = (2.0, 1.39)  # warm_s, cold_s: a warm service longer than the mean gap
+
+
+def scan_check_batch(label: str):
+    """``(t, offsets, consts)`` of 19a's batch ``label``: CPU tensors from the
+    batch's own seed, ``consts`` as ``fleet_vec`` passes them."""
+    import numpy as np
+    ka, groups = SCAN_CHECK[label]
+    rng = np.random.default_rng([19, list(SCAN_CHECK).index(label)])
+    arrivals = []
+    for kind, n in groups:
+        if kind == "mixed":
+            gaps = np.where(rng.random(n) < 0.1, rng.exponential(20.0, n),
+                            rng.exponential(0.03, n))
+        else:
+            gaps = rng.uniform(0.0, 0.02, n)
+        arrivals.append(np.cumsum(gaps))
+    offsets = np.r_[0, np.cumsum([n for _, n in groups])].astype(np.int64)
+    warm_s, cold_s = SCAN_SERVICE
+    return (torch.from_numpy(np.concatenate(arrivals)), torch.from_numpy(offsets),
+            (warm_s, cold_s, warm_s / 60.0, cold_s / 60.0, ka))
+
+
+def azure_scan_batch():
+    """``(t, offsets, consts)`` of azure_scale_xl's warmswap batch with one
+    instance a function, as ``fleet_vec`` hands it to the kernel (on the
+    card): the scenario's own traces, its scan run stopped at that call."""
+    import importlib
+    import os
+    from pathlib import Path
+
+    from repro_torch.core.scenario import Scenario, run
+
+    # the subpackage, whose attribute fleet_vec looks the wrapper up in at each call
+    fs = importlib.import_module("repro_torch.kernels.fleet_scan")
+
+    class Caught(Exception):
+        pass
+
+    caught = []
+
+    def catch(*args):
+        caught.append(args)
+        raise Caught
+
+    path = (Path(__file__).resolve().parents[3] / "benchmarks" / "scenarios"
+            / "azure_scale_xl.json")
+    scn = Scenario.from_file(str(path)).with_overrides(
+        {"max_instances_per_fn": 1, "methods": ["warmswap"]})
+    real, old = fs.fleet_scan, os.environ.get("REPRO_FLEET_VEC_SCAN")
+    fs.fleet_scan = catch
+    os.environ["REPRO_FLEET_VEC_SCAN"] = "1"
+    try:
+        run(scn)
+    except Caught:
+        pass
+    finally:
+        fs.fleet_scan = real
+        if old is None:
+            del os.environ["REPRO_FLEET_VEC_SCAN"]
+        else:
+            os.environ["REPRO_FLEET_VEC_SCAN"] = old
+    t, offsets, *consts = caught[0]
+    return t, offsets, tuple(consts)
+
+
+def fleet_scan_split(call, n: int = 5) -> dict:
+    """Device ms a call of ``call`` spends in each of fleet_scan's kernels
+    (``torch.profiler``): pass 1, and pass 2's rounds summed. Each kernel's
+    mean launch over the launches the profiler kept (it can drop some),
+    times its launches a call (``fleet_scan.last``; one on a tree whose
+    wrapper keeps no record)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    last = getattr(scan_ops.fleet_scan, "last", None)
+    per_call = {"pass1_ms": 1, "pass2_ms": last["launches"] - 1 if last else 0}
+    split = {"pass1_ms": 0.0, "pass2_ms": 0.0}
+    for e in prof.key_averages():
+        key = ("pass1_ms" if "fleet_scan_segments" in e.key or "fleet_scan_kernel" in e.key
+               else "pass2_ms" if "fleet_scan_repair" in e.key else None)
+        if key and e.count:
+            split[key] = e.device_time_total / e.count / 1e3 * per_call[key]
+    return split
+
+
+#: fleet_scan's (segment, warm-up) grid
+FLEET_CUTS = [(S, W) for S in (128, 256, 512, 1024, 4096) for W in (0, 8, 32)]
+
+
+def sweep_fleet_scan(device, rows: list) -> None:
+    """fleet_scan over :data:`FLEET_CUTS` on three batches."""
+    import inspect
+    fs = scan_ops.fleet_scan
+    takes_cut = "segment" in inspect.signature(fs).parameters
+    batches = {"azure_scale_xl warmswap": azure_scan_batch(),
+               "19a loose": scan_check_batch("loose"),
+               "19a queued": scan_check_batch("queued")}
+    for label, (t, offsets, consts) in batches.items():
+        t, offsets = t.to(device), offsets.to(device)
+        lengths = offsets.diff()
+        for S, W in (FLEET_CUTS if takes_cut else [(None, 0)]):
+            kw = {} if S is None else {"segment": S, "warmup": W}
+
+            def call():
+                return fs(t, offsets, *consts, **kw)
+
+            ms = cuda_ms(call, iters=5, per=1, warmup=1)
+            split = fleet_scan_split(call)
+            last = getattr(fs, "last", None) or {}
+            moved, ops, chain = fleet_scan_work(offsets.cpu(), S, W)
+            bound = bound_ms(moved, ops, torch.float64)[0]
+            kernel_ms = split["pass1_ms"] + split["pass2_ms"]
+            row = {"kernel": "fleet_scan", "batch": label, "segment": S, "warmup": W,
+                   "arrivals": int(t.shape[0]), "groups": int(lengths.shape[0]),
+                   "longest_group": int(lengths.max()), "ms": ms, **split,
+                   "bound_ms": bound, "bound_share": bound / kernel_ms if kernel_ms else None,
+                   "chain_steps": chain, "segments": last.get("segments"),
+                   "rounds": last.get("rounds"), "repaired": last.get("repaired"),
+                   "launches": last.get("launches")}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del t, offsets
+        torch.cuda.empty_cache()
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -386,6 +546,8 @@ def main(argv=None) -> int:
                     help="the wrappers' host time per call")
     ap.add_argument("--backward", action="store_true",
                     help="the flash backward's launches at the training shapes")
+    ap.add_argument("--fleet-scan", action="store_true",
+                    help="fleet_scan's segment and warm-up on three batches")
     ap.add_argument("--out", help="also write the rows as JSON to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -398,6 +560,8 @@ def main(argv=None) -> int:
         time_host(device, rows)
     elif args.backward:
         time_backward(device, rows)
+    elif args.fleet_scan:
+        sweep_fleet_scan(device, rows)
     elif args.main:
         time_main(device, rows)
     else:

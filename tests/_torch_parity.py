@@ -366,3 +366,66 @@ def zero1_rank(rank: int, world: int, job: dict) -> dict:
             "extra_calls": [b - a for a, b in zip(c0, c1)],
         }
     return out
+
+
+# ---------------------------------------------------------------------------------
+# fleet_scan batches: one builder for the CPU model test and the card's test
+# ---------------------------------------------------------------------------------
+
+#: warm_s, cold_s: a warm service (2 s) longer than the mean gap, so queues form
+SCAN_SERVICE = (2.0, 1.39)
+
+
+def scan_consts(ka: float) -> tuple:
+    """``(warm_s, cold_s, wm, cold60, ka)`` as ``fleet_vec`` passes them."""
+    warm_s, cold_s = SCAN_SERVICE
+    return warm_s, cold_s, warm_s / 60.0, cold_s / 60.0, ka
+
+
+def scan_group(rng, n: int) -> np.ndarray:
+    """Bursts of gaps under a warm service, and one gap in ten long enough to
+    outlive a keep-alive: cold, queued and warm arrivals all occur."""
+    gaps = np.where(rng.random(n) < 0.1, rng.exponential(20.0, n), rng.exponential(0.03, n))
+    return np.cumsum(gaps)
+
+
+def queued_group(rng, n: int) -> np.ndarray:
+    """Gaps under 0.02 min against a 2 s (0.033 min) warm service: after the
+    first, every arrival queues, and the backlog only grows."""
+    return np.cumsum(rng.uniform(0.0, 0.02, n))
+
+
+def busy_group(n: int, at) -> np.ndarray:
+    """Arrivals a minute apart (each finds the instance idle) but for a burst
+    0.001 min apart around each index in ``at``, where a queue builds."""
+    gaps = np.ones(n)
+    for i in at:
+        gaps[max(1, i - 6):i + 6] = 0.001
+    return np.cumsum(gaps)
+
+
+def scan_csr(groups) -> tuple:
+    """CPU tensors ``(t, offsets)`` of a CSR batch of the groups."""
+    offsets = np.zeros(len(groups) + 1, np.int64)
+    np.cumsum([len(g) for g in groups], out=offsets[1:])
+    return torch.from_numpy(np.concatenate(groups)), torch.from_numpy(offsets)
+
+
+def scan_cases(segment: int, warmup: int) -> dict:
+    """name -> (groups, keep-alive (min), segment, warmup): the batches that
+    hold the segmented scan's every path; ``segment`` and ``warmup`` are the
+    kernel's defaults, for the case at them."""
+    rng = np.random.default_rng(23)
+    around = [15, 16, 17, 33]
+    S = segment
+    return {
+        "around_S_loose": ([scan_group(rng, n) for n in around], 15.0, 16, 4),
+        "around_S_tight": ([scan_group(rng, n) for n in around], 0.02, 16, 4),
+        "shorter_than_W": ([scan_group(rng, n) for n in (3, 5, 7, 9, 20)], 15.0, 4, 8),
+        "all_queued": ([queued_group(rng, 200), scan_group(rng, 5)], 15.0, 16, 4),
+        "busy_boundary": ([busy_group(100, (32, 64)), busy_group(70, (31,))], 15.0, 32, 2),
+        "w0_small_S": ([scan_group(rng, n) for n in (50, 37, 8)]
+                       + [queued_group(rng, 30)], 15.0, 4, 0),
+        "defaults": ([scan_group(rng, n) for n in (S - 1, S, S + 1, 2 * S + 1)]
+                     + [queued_group(rng, 2 * S + 88)], 15.0, segment, warmup),
+    }

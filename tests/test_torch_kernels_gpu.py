@@ -28,6 +28,8 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_backward,
     flash_attention_backward_plain,
 )
+from repro_torch.kernels.fleet_scan.ops import SEGMENT, WARMUP
+from _torch_parity import scan_cases, scan_consts, scan_csr  # tests/, on sys.path
 
 FLASH_ROWS = [  # (B, H, Hkv, S, d, causal, window, softcap): tests/test_kernels.py:29-35
     (2, 4, 2, 256, 64, True, None, None),
@@ -544,3 +546,34 @@ def test_fleet_scan_kernel_bitwise_equals_plain():
         n_cold, n_queued = int(want[4].sum()), int(want[5].sum())
         assert n_cold > len(lengths) and n_queued > 0 and n_cold + n_queued < len(t), \
             "a branch of the recursion went untested"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(scan_cases(SEGMENT, WARMUP)))
+def test_fleet_scan_segments_bitwise_equal_plain(case):
+    """The segmented kernel on the CPU model test's batches (lengths around a
+    segment, groups shorter than the warm-up, a group queued throughout, a
+    segment boundary inside a burst), at the batch's own segment and warm-up,
+    at the defaults, and at W = 0 with segments of 4: all six outputs bitwise
+    the plain version's, one counted call each, and pass 2's rewrites where
+    guessed carries must be wrong."""
+    dev = _card()
+    groups, ka, segment, warmup = scan_cases(SEGMENT, WARMUP)[case]
+    t, offsets = scan_csr(groups)
+    consts = scan_consts(ka)
+    want = fleet_scan_plain(t, offsets, *consts)
+    repaired = {}
+    for cut in ((segment, warmup), (SEGMENT, WARMUP), (4, 0)):
+        before = fleet_scan.launches
+        got = fleet_scan(t.to(dev), offsets.to(dev), *consts, segment=cut[0], warmup=cut[1])
+        torch.cuda.synchronize()
+        assert fleet_scan.launches == before + 1
+        last = fleet_scan.last
+        assert last["launches"] >= 1 + last["rounds"] and last["rounds"] >= 1
+        for name, g, w in zip(("sample", "wait", "start", "exp2", "cold", "queued"),
+                              got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), (case, cut, name)
+        repaired[cut] = last["repaired"]
+    if case in ("all_queued", "w0_small_S", "busy_boundary", "defaults"):
+        assert repaired[(segment, warmup)] > 0, repaired
+    assert repaired[(4, 0)] > 0, repaired
