@@ -157,10 +157,20 @@ families, and checks them:
    CLI with ``REPRO_FLEET_VEC_SCAN=1`` on the card: a sweep of page_headline
    (smoke, fleet_vec, 4 seeds) serially and on 2 spawned workers, both
    stores byte-equal to the numpy solver's, then the smoke tournament with
-   every method's minimum oracle gaps finite and >= 0.
+   every method's minimum oracle gaps finite and >= 0;
+21. the port's five examples (``examples/*_torch.py``) through their
+   ``main`` at the reference examples' default flags: (a) quickstart, equal
+   classes on both start paths, one build, flash_attention on the
+   tensor-core route; (b) multi_tenant_fleet, the live replay's cold and warm
+   counts equal to its twin's, a 46,137,344-byte pool, one build; (c)
+   train_small, 200 steps of fnbench-tiny with a failure injected at step 100:
+   the loss falls, one restore, the fp32 flash forward and backward; (d)
+   serve_e2e, 24 requests on reduced qwen3-1.7b (head dim 16), all
+   completed, the recovered replica serves, decode_attention launched; (e)
+   fleet_sim, its own asserts (host numpy, no kernel).
 
 Each phase prints its seconds. The launch counters are set to 0 just before
-each driven path (phases 4, 5, 7-14, 16, 19b-d, 20b-d) and read just after; a kernel the
+each driven path (phases 4, 5, 7-14, 16, 19b-d, 20b-d, 21a-e) and read just after; a kernel the
 path did not launch fails the run; falcon-mamba's path must run diag_recurrence on its sequential route and
 recurrentgemma's on its chunked route. Each phase frees its models before
 the next. Any failed check exits non-zero. The last line is the JSON device
@@ -206,6 +216,8 @@ DECODE_MAIN = (SERVE_SLOTS, 16, 8, SERVE_SEQ, 128)      # qwen3-1.7b decode: B, 
 SERVE_LOGIT_TOL = 1e-3     # of max |logit|: fp32, products in another order
 FLASH_GRIFFIN = (1, 10, 1, 2048, 256, 2048)   # recurrentgemma local layer: B, H, Hkv, S, d, window
 FLASH_QWEN3 = (1, 16, 8, 2048, 128)           # qwen3-1.7b serving prefill (fp32): B, H, Hkv, S, d
+FLASH_REDUCED = (1, 4, 2, 31, 16)     # examples/serve_e2e_torch.py: reduced qwen3, prompts 4-31
+DECODE_REDUCED = (4, 4, 2, 128, 16)   # its decode: 4 slots of 128 positions
 DECODE_GRIFFIN = (SERVE_SLOTS, 10, 1, 2048, 256)  # its decode: B, H, Hkv, C = window, d
 FLASH_H2O = (1, 32, 8, 4608, 120, 4096)       # h2o-danube3-4b prefill: B, H, Hkv, S, d, window
 FLASH_ENCODER = (1, 12, 12, 1500, 64)         # whisper-small encoder (non-causal)
@@ -567,6 +579,9 @@ def check_flash(device, errs: dict) -> None:
         cases.append((dtype, 1, 14, 2, 320, 320, 64, True, None, None))     # g = 7
         B, H, Hkv, S, d = FLASH_MOONSHOT
         cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
+        B, H, Hkv, S, d = FLASH_REDUCED                               # d = 16
+        cases.append((dtype, B, H, Hkv, S, S, d, True, None, None))
+        cases.append((dtype, 2, 4, 2, 200, 200, d, True, None, None))
     worst = 0.0
     # this slice's timed shapes: (path, dtype the path runs, B, H, Hkv, Sq, Sk, d)
     timed = [("h2o", torch.bfloat16, *FLASH_H2O[:4], *FLASH_H2O[3:5]),
@@ -633,6 +648,7 @@ def check_decode(device, errs: dict) -> None:
     worst: dict = {}
     shapes = DECODE_SWEEP + [(*shape, None) for shape, _ in DECODE_TIMED.values()]
     shapes.append((2, 21, 3, 300, 120, 50.0))                       # d = 120, g = 7
+    shapes.append((*DECODE_REDUCED, None))                          # d = 16, g = 2
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
@@ -3036,6 +3052,18 @@ BF16_TRAIN_LR = 1e-3
 #: draws a function of 112 M arrivals a day, and seeds 0-3 took 370 s with the
 #: numpy solver and 66 s with the scan (one H100 host)
 EXPERIMENT_AXES = ["--axis", "engine=fleet_vec", "--axis", "traces.kwargs.seed=0,1,2,4"]
+EXAMPLES = os.path.join(ROOT, "examples")
+#: the port's examples phase 21 runs, each at the reference example's default
+#: flags: sub-phase -> (file in examples/, the kernels its run must launch)
+EXAMPLE_RUNS = {
+    "21a": ("quickstart_torch", ("page_gather", "flash_attention")),
+    "21b": ("multi_tenant_fleet_torch", ("page_gather", "flash_attention")),
+    "21c": ("train_small_torch", ("flash_attention", "flash_attention_backward")),
+    "21d": ("serve_e2e_torch", ("page_gather", "flash_attention", "decode_attention")),
+    "21e": ("fleet_sim_torch", ()),
+}
+MULTI_TENANT_POOL = 46_137_344     # bytes of model-tiny's image in the pool (the reference's)
+SERVE_E2E_REQUESTS = 24            # examples/serve_e2e.py's default --requests
 
 
 def check_bf16_backward(device, errs: dict, tag: str = "20a") -> dict:
@@ -3214,6 +3242,99 @@ def phase_experiments(device, tmp: str, tag: str = "20d") -> dict:
         f"sha256 {sha}); tournament (smoke, {len(report['cells'])} cells) "
         f"{secs['tournament']:.2f} s, min gaps {json.dumps(gaps)}")
     return {"counts": counts, "seconds": secs, "store_sha256": sha, "min_gaps": gaps}
+
+
+# ---------------------------------------------------------------------------------
+# 21. the port's examples
+# ---------------------------------------------------------------------------------
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (examples/ is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_example(tag: str, out: dict, by_route: dict, bwd: dict) -> str:
+    """Checks one example's returned numbers; returns its ``[21x]`` line."""
+    if tag == "21a":
+        for tenant, t in out["tenants"].items():
+            expect(t["classes"] == t["baseline_classes"],
+                   f"[{tag}] {tenant}: warmswap classes differ from baseline")
+        expect(out["builds"] == 1, f"[{tag}] image built {out['builds']} times, want 1")
+        expect(by_route["tc_bf16"] > 0 and by_route["cuda_core"] == 0,
+               f"[{tag}] flash_attention off the tensor-core route: {by_route}")
+        return "; ".join(f"{tenant}: baseline {t['baseline_s']:.4f} s, warmswap "
+                         f"{t['warmswap_s']:.4f} s, x{t['speedup']:.2f}"
+                         for tenant, t in out["tenants"].items()) + \
+            f"; scenario saving {out['scenario_saving']:.4f}"
+    if tag == "21b":
+        expect((out["cold"], out["warm"]) == (out["twin_cold"], out["twin_warm"]),
+               f"[{tag}] live {out['cold']} cold / {out['warm']} warm, twin "
+               f"{out['twin_cold']} / {out['twin_warm']}")
+        expect(out["pool_bytes"] == MULTI_TENANT_POOL and out["builds"] == 1,
+               f"[{tag}] pool {out['pool_bytes']} B, {out['builds']} builds")
+        expect(by_route["tc_bf16"] > 0 and by_route["cuda_core"] == 0,
+               f"[{tag}] flash_attention off the tensor-core route: {by_route}")
+        return (f"{out['invocations']} invocations: {out['cold']} cold "
+                f"({out['cold_ms']:.3f} ms avg), {out['warm']} warm ({out['warm_ms']:.3f} ms "
+                f"avg) = the twin's; pool {out['pool_bytes']} B")
+    if tag == "21c":
+        expect(out["last_loss"] < out["first_loss"] and out["restores"] == 1,
+               f"[{tag}] loss {out['first_loss']} -> {out['last_loss']}, "
+               f"{out['restores']} restores")
+        expect(by_route["cuda_core"] > 0 and bwd[bwd_route("float32")] > 0,
+               f"[{tag}] the fp32 flash forward / backward routes: {by_route}, {bwd}")
+        return (f"loss {out['first_loss']:.4f} -> {out['last_loss']:.4f}, restores "
+                f"{out['restores']}, {out['steps_run']} steps, {out['step_s'] * 1e3:.3f} ms "
+                f"a step (rollback and checkpoints included)")
+    if tag == "21d":
+        done = sum(m["completed"] for m in out["served"].values())
+        expect(done == SERVE_E2E_REQUESTS and out["recovered_completed"] == 1,
+               f"[{tag}] {done} of {SERVE_E2E_REQUESTS} requests, recovered replica "
+               f"served {out['recovered_completed']}")
+        expect(by_route["cuda_core"] > 0, f"[{tag}] flash_attention routes {by_route}")
+        return (f"{done} requests, mean ttft {out['ttft_s'] * 1e3:.3f} ms, wall "
+                f"{out['wall_s']:.3f} s; recovery via pool {out['recovery_warm_s']:.4f} s, "
+                f"cold reload {out['recovery_cold_s']:.4f} s, x{out['recovery_ratio']:.2f}")
+    expect(out["sweep_points"] == out["resumed_skipped"] == 2,
+           f"[{tag}] sweep {out['sweep_points']} points, resume skipped "
+           f"{out['resumed_skipped']}")
+    return (f"degenerate avg {out['degenerate_ms']:.2f} ms, memory saving "
+            f"{out['saving']:.4f}; the example's own asserts held")
+
+
+def phase_examples(device, tag: str = "21") -> dict:
+    """21: the port's five examples through their ``main`` on ``device`` at the
+    reference examples' default flags, the launch counters set to 0 before
+    each and read after it; each must launch its path's kernels."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_backward
+    kernels = kernel_fns()
+    result = {"counts": {}, "seconds": {}}
+    for sub, (name, needed) in EXAMPLE_RUNS.items():
+        mod = load_example(name)
+        reset_counts(kernels.values())
+        t0 = time.perf_counter()
+        out = mod.main(["--device", str(device)])
+        sync(device)
+        result["seconds"][sub] = time.perf_counter() - t0
+        counts = launch_counts(kernels)
+        result["counts"][sub] = counts
+        by_route = dict(flash_attention.launches_by_route)
+        bwd = dict(flash_attention_backward.launches_by_route)
+        for kernel in needed:
+            expect(counts[kernel] > 0, f"[{sub}] {name} did not launch {kernel}")
+        line = check_example(sub, out, by_route, bwd)
+        if "store" in out:                              # fleet_sim's sweep store
+            shutil.rmtree(os.path.dirname(out["store"]), ignore_errors=True)
+        log(f"[{sub}] {name}: {line}; {result['seconds'][sub]:.2f} s; launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+    total = sum(result["seconds"].values())
+    log(f"[{tag}] the five examples took {total:.1f} s")
+    return result
 
 
 def _flash_row(gen, device, dtype, B, H, Hkv, Sq, Sk, d, causal, window, label: str):
@@ -3629,6 +3750,10 @@ def main() -> int:
         path_counts["experiments"] = experiments.pop("counts")
         log(f"[20] phase {time.perf_counter() - t20:.1f} s (20c ran in phase 18's ranks)")
         peaks.append(free_device("20"))
+        examples = timed("21", phase_examples, device)
+        for sub, counts in examples.pop("counts").items():
+            path_counts[f"example-{sub}"] = counts
+        peaks.append(free_device("21"))
     launches = {k: sum(c.get(k, 0) for c in path_counts.values()) for k in kernel_fns()}
     log(f"[6] launches on the main paths: {launches}")
     path_counts["whisper-cross"] = path_counts["whisper"]
@@ -3684,6 +3809,7 @@ def main() -> int:
     log(f"[18] sharded summary: {json.dumps(sharded)}")
     log(f"[19] simulation summary: {json.dumps({'scan_check': scan_check, **scale, **band, **predicted})}")
     log(f"[20] summary: {json.dumps({'20a': bf16_check, '20b': train_bf16, '20c': sharded['20c'], '20d': experiments})}")
+    log(f"[21] examples summary: {json.dumps(examples)}")
     log(f"[6] total smoke time {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory {max(peaks) / 1e9:.2f} GB")
     print(card, flush=True)

@@ -58,6 +58,8 @@
 //   shared memory only: q and the K/V tiles are DP = pow2ceil(D) wide, their
 //   columns D..DP-1 zeros (cp.async fills them without reading), so the
 //   thread layout of DP applies; the cache is read in place, never copied.
+//   A row is at least four 16-byte vectors wide, one for each column part of
+//   a key, so bf16 at d=16 (reduced qwen3-1.7b) runs on rows 32 wide.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -82,8 +84,9 @@ __host__ __device__ constexpr int pow2ceil(int x) { return x <= 1 ? 1 : 2 * pow2
 
 template <typename T, int D, int G>
 struct Cfg {
-  static constexpr int DP = pow2ceil(D);                          // shared row width
   static constexpr int EPL = 16 / static_cast<int>(sizeof(T));  // elements per 16 bytes
+  // shared row width: at least 4 vectors, one for each column part of a key
+  static constexpr int DP = pow2ceil(D) < 4 * EPL ? 4 * EPL : pow2ceil(D);
   static constexpr int NV = DP / EPL;                             // 16-byte vectors per row
   static constexpr int RS = DP * static_cast<int>(sizeof(T)) + 16; // padded row, bytes
   static constexpr int SB = 2 * kTile * RS;                       // one stage: K and V tiles
@@ -647,8 +650,8 @@ struct Tag {
 // group (H/Hkv) and the shapes the tests hold. ops.SHAPES is the same list;
 // a config that needs another pair adds it to both.
 #define DECODE_SHAPES(X)                                                          \
-  X(32, 1) X(64, 1) X(64, 2) X(64, 3) X(64, 7) X(120, 4) X(120, 7) X(128, 1)     \
-  X(128, 2) X(128, 8) X(256, 10)
+  X(16, 2) X(32, 1) X(64, 1) X(64, 2) X(64, 3) X(64, 7) X(120, 4) X(120, 7)     \
+  X(128, 1) X(128, 2) X(128, 8) X(256, 10)
 
 template <typename T, typename F>
 int with_shape(int D, int G, F&& f) {

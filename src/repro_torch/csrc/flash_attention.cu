@@ -669,6 +669,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                static_cast<cudaStream_t>(stream)};
   if (route == 0) {
     switch (D) {
+      case 16: return launch_core<16>(a, block_q, block_k);
       case 32: return launch_core<32>(a, block_q, block_k);
       case 64: return launch_core<64>(a, block_q, block_k);
       case 120: return launch_core<120>(a, block_q, block_k);
@@ -677,6 +678,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     }
   } else if (route == 1) {
     switch (D) {
+      case 16: return launch_tc<16, 64, 64, 1>(a, block_q, block_k);
       case 32: return launch_tc<32, 64, 64, 1>(a, block_q, block_k);
       case 64: return launch_tc<64, 64, 64, 1>(a, block_q, block_k);
       case 120: return launch_tc<120, 64, 64, 1>(a, block_q, block_k);

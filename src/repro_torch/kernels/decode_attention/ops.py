@@ -44,9 +44,10 @@ NEG_INF = -2.0e38
 #: tests' shapes, as ``DECODE_SHAPES`` in ``csrc/decode_attention.cu`` lists
 #: them (a config that needs another pair adds it to both); d=120
 #: (h2o-danube3) runs on shared-memory tiles 128 wide whose pad columns are
-#: zeros, reading the cache in place
-SHAPES = ((32, 1), (64, 1), (64, 2), (64, 3), (64, 7), (120, 4), (120, 7), (128, 1),
-          (128, 2), (128, 8), (256, 10))
+#: zeros, reading the cache in place; (16, 2) is the reduced qwen3-1.7b that
+#: examples/serve_e2e_torch.py serves
+SHAPES = ((16, 2), (32, 1), (64, 1), (64, 2), (64, 3), (64, 7), (120, 4), (120, 7),
+          (128, 1), (128, 2), (128, 8), (256, 10))
 TILE = 32                        # cache rows per pipeline stage in the kernel
 MAX_SPLITS = 4096                # the combine kernel's limit
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -41,9 +41,12 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels.build import check, launch_pass, library, on_device
 
 NEG_INF = -2.0e38
-#: head dims with a compiled kernel; 120 (h2o-danube3) runs on tiles 128 wide
-#: whose pad columns are zeros in shared memory, never in device memory
-HEAD_DIMS = (32, 64, 120, 128, 256)
+#: head dims with a compiled forward kernel; 120 (h2o-danube3) runs on tiles
+#: 128 wide whose pad columns are zeros in shared memory, never in device
+#: memory; 16 is the reduced qwen3-1.7b that examples/serve_e2e_torch.py serves
+HEAD_DIMS = (16, 32, 64, 120, 128, 256)
+#: head dims with compiled backward kernels (every trained config's)
+BWD_HEAD_DIMS = (32, 64, 120, 128, 256)
 ROUTES = ("cuda_core", "tc_bf16")     # index = the route code the CUDA side takes
 #: (block_q, block_k) of the tensor-core route at every head dim, as compiled
 #: in csrc/flash_attention.cu: 4 warps of 16 q rows, 64-key tiles (on one
@@ -288,8 +291,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"got {q.dtype}")
     if out.dtype != q.dtype or dout.dtype != q.dtype:
         raise TypeError(f"out and dout must be {q.dtype}, got {out.dtype}, {dout.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dim in {HEAD_DIMS}, got {d}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward takes head dim in {BWD_HEAD_DIMS}, got {d}")
     if tuple(lse.shape) != (B, H, Sq):
         raise ValueError(f"lse {tuple(lse.shape)} is not (B, H, Sq): the forward ran "
                          f"without a gradient to take")

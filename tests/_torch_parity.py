@@ -2,8 +2,17 @@
 package: arrays cross between the two as numpy (bf16 as its uint16 bits)."""
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
+import os
+import sys
+
 import numpy as np
 import torch
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples")
 
 
 def to_torch(a) -> torch.Tensor:
@@ -34,6 +43,44 @@ def tree_to_torch(tree):
 
 def pages_to_torch(store) -> torch.Tensor:
     return torch.from_numpy(np.array(store, dtype=np.uint8))
+
+
+def port_params(params, device=None):
+    """JAX parameters -> the port's, leaf for leaf and bit for bit (a bf16
+    leaf crosses as its uint16 view), keyed by keystr."""
+    import jax
+
+    from repro_torch.core.pages import params_from_numpy
+    flat = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        arr = np.asarray(leaf)
+        flat[jax.tree_util.keystr(path)] = (arr.view(np.uint16)
+                                           if arr.dtype.name == "bfloat16" else arr)
+    return params_from_numpy(flat, device)
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module of its own (examples/ is not a
+    package and stays off ``sys.path``)."""
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, argv: list):
+    """``(main's return, its stdout lines)``. The reference's examples parse
+    ``sys.argv`` and the port's take ``argv``, so ``argv`` reaches both."""
+    buf = io.StringIO()
+    saved = sys.argv
+    sys.argv = [mod.__file__, *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv) if mod.__name__.endswith("_torch") else mod.main()
+    finally:
+        sys.argv = saved
+    return out, buf.getvalue().splitlines()
 
 
 def frontend(cfg, batch: int, rng) -> dict:

@@ -234,7 +234,7 @@ def test_plan_routes_by_dtype(d):
     with pytest.raises(TypeError):
         plan(torch.float16, d, 300, True)
     with pytest.raises(ValueError):
-        plan(torch.bfloat16, d + 16, 300, True)
+        plan(torch.bfloat16, d + 1, 300, True)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
