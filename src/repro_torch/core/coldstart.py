@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import workloads as wl
 from repro_torch.core.migration import LinkModel, RestorePolicy
 from repro_torch.core.pages import materialize
@@ -83,12 +84,15 @@ class FunctionInstance:
         self.started_at = time.monotonic()
 
     def invoke(self, request: Any):
-        t0 = time.perf_counter()
-        result = self.spec.handler_fn(self.params, self.handler_weights, request,
-                                      self.execs)
-        if isinstance(result, torch.Tensor):
-            synchronize(result.device)
-        return result, time.perf_counter() - t0
+        """``(result, seconds)``: the handler on ``request``, synchronised.
+        Its span ``instance.invoke`` opens an invocation unless the caller is
+        inside one (a cold start's first request)."""
+        with spans.invocation(), spans.phase("instance.invoke") as ph:
+            result = self.spec.handler_fn(self.params, self.handler_weights, request,
+                                          self.execs)
+            if isinstance(result, torch.Tensor):
+                synchronize(result.device)
+        return result, ph.seconds
 
 
 class ColdStartOrchestrator:
@@ -140,10 +144,10 @@ class ColdStartOrchestrator:
 
     def _boot(self) -> float:
         """Runtime boot: device ready + dispatch path warm."""
-        t0 = time.perf_counter()
-        torch.zeros((8,), device=self.device) + 1
-        synchronize(self.device)
-        return time.perf_counter() - t0
+        with spans.phase("coldstart.boot") as ph:
+            torch.zeros((8,), device=self.device) + 1
+            synchronize(self.device)
+        return ph.seconds
 
     def _first_request(self, spec: FunctionSpec):
         w = wl.WORKLOADS.get(spec.fn_id)
@@ -201,39 +205,47 @@ class ColdStartOrchestrator:
     # ------------------------------------------------------------------ warmswap
     def cold_start_warmswap(self, fn_id: str,
                             policy: Optional[RestorePolicy] = None):
+        """``(instance, PhaseTimes)``; the root span ``coldstart`` of a fresh
+        invocation holds one span a phase, ``coldstart.<phase>``."""
+        with spans.invocation(), spans.span("coldstart"):
+            return self._warmswap(fn_id, policy)
+
+    def _warmswap(self, fn_id: str, policy: Optional[RestorePolicy]):
         spec = self.registry.get(fn_id)
         policy = policy or self.cfg.policy
         t = PhaseTimes(network=self.cfg.network_s, container=self.cfg.container_s)
         t.boot = self._boot()
 
         # communication: metadata transfer + page-server attach
-        t0 = time.perf_counter()
-        restored = self.manager.request_migration(spec.image_id, policy,
-                                                  self.cfg.link)
-        t.communication = time.perf_counter() - t0
+        with spans.phase("coldstart.communication") as ph:
+            restored = self.manager.request_migration(spec.image_id, policy,
+                                                      self.cfg.link)
+        t.communication = ph.seconds
 
         # migration: restore params; touch leaves in layer order
-        t0 = time.perf_counter()
-        w = wl.WORKLOADS.get(fn_id)
-        touch = w.touch_keys if w is not None and w.touch_keys else None
-        if policy == RestorePolicy.LAZY and touch is not None:
-            params = {k: restored.fault(k) for k in touch}    # partial residency
-        else:
-            for key in restored.metadata.page_table.order[:1]:
-                restored.fault(key)                           # first fault
-            params = restored.as_pytree()
-        execs = self.manager.executables_for(spec.image_id)
-        synchronize(self.device)
-        t.migration = time.perf_counter() - t0
+        with spans.phase("coldstart.migration") as ph:
+            w = wl.WORKLOADS.get(fn_id)
+            touch = w.touch_keys if w is not None and w.touch_keys else None
+            if policy == RestorePolicy.LAZY and touch is not None:
+                params = {k: restored.fault(k) for k in touch}    # partial residency
+            else:
+                for key in restored.metadata.page_table.order[:1]:
+                    restored.fault(key)                           # first fault
+                params = restored.as_pytree()
+            execs = self.manager.executables_for(spec.image_id)
+            synchronize(self.device)
+        t.migration = ph.seconds
 
-        t0 = time.perf_counter()
-        hw = spec.handler_builder()
-        t.handler_import = time.perf_counter() - t0
+        with spans.phase("coldstart.handler_import") as ph:
+            hw = spec.handler_builder()
+        t.handler_import = ph.seconds
 
         inst = FunctionInstance(spec, params, hw, execs)
         inst.migration_stats = restored.stats                 # type: ignore[attr-defined]
-        _, t.execution = inst.invoke(self._first_request(spec))
-        self.manager.release(spec.image_id)
+        with spans.span("coldstart.execution"):
+            _, t.execution = inst.invoke(self._first_request(spec))
+        with spans.span("coldstart.release"):
+            self.manager.release(spec.image_id)
         return inst, t
 
     # ------------------------------------------------------------------ prebaking

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.image import ImageMetadata, LiveDependencyImage
 from repro_torch.core.pages import view_bytes
 from repro_torch.core.tree import TreeDef
@@ -59,8 +60,8 @@ class MigrationStats:
     pages_transferred: int = 0
     bytes_transferred: int = 0
     faults: int = 0
-    fault_wait_s: float = 0.0        # time execution spent blocked on pages
-    stream_s: float = 0.0            # background streaming wall time
+    fault_wait_s: float = 0.0        # time execution spent blocked on pages:
+                                     # faults, and wait_all's join on the stream
 
 
 class PageServer:
@@ -140,9 +141,10 @@ class RestoredImage:
         On failure the claim is released and the event set anyway so waiters
         wake up and surface the error instead of blocking forever."""
         try:
-            e = self._table.entries[key]
-            pages = self._server.fetch_pages(e.first_page, e.n_pages)
-            self._local[key] = view_bytes(pages.reshape(-1), e)
+            with spans.span("migration.install"):
+                e = self._table.entries[key]
+                pages = self._server.fetch_pages(e.first_page, e.n_pages)
+                self._local[key] = view_bytes(pages.reshape(-1), e)
         except BaseException as exc:
             with self._claim_lock:
                 self._claimed.discard(key)
@@ -171,18 +173,17 @@ class RestoredImage:
                 ) from self._install_error
 
     def _stream_all(self, skip: Sequence[str] = ()) -> None:
-        t0 = time.perf_counter()
-        for key in self._table.order:      # layer order == execution order
-            if key in skip or key in self._local:
-                continue
-            if self._claim(key):           # else: a concurrent fault owns it
-                try:
-                    self._install_leaf(key)
-                except Exception:
-                    # recorded in _install_error and the claim was released —
-                    # keep streaming; wait_all()/fault() retry this leaf
+        with spans.span("migration.stream"):
+            for key in self._table.order:      # layer order == execution order
+                if key in skip or key in self._local:
                     continue
-        self.stats.stream_s += time.perf_counter() - t0
+                if self._claim(key):           # else: a concurrent fault owns it
+                    try:
+                        self._install_leaf(key)
+                    except Exception:
+                        # recorded in _install_error and the claim was released —
+                        # keep streaming; wait_all()/fault() retry this leaf
+                        continue
 
     def _start_background_stream(self, skip: Sequence[str] = ()) -> None:
         # Two first-faults must not both stream, and a caller that finds the
@@ -193,7 +194,7 @@ class RestoredImage:
                 return
             self._streaming_started = True
             thread = threading.Thread(
-                target=self._stream_all, args=(tuple(skip),), daemon=True)
+                target=spans.carry(self._stream_all), args=(tuple(skip),), daemon=True)
             thread.start()
             self._stream_thread = thread
 
@@ -206,31 +207,35 @@ class RestoredImage:
         if self._events[key].is_set() and key in self._local:
             return self._local[key]
         self.stats.faults += 1
-        t0 = time.perf_counter()
-        if self.policy == RestorePolicy.LAZY:
-            self._ensure_leaf(key)
-        elif self.policy == RestorePolicy.BULK:
-            self._ensure_leaf(key)
-            self._start_background_stream(skip=(key,))
-        else:
-            # NO_LAZY / NO_PAGESERVER should have pre-installed everything
-            self._events[key].wait()
-        self.stats.fault_wait_s += time.perf_counter() - t0
+        with spans.phase("migration.fault") as ph:
+            if self.policy == RestorePolicy.LAZY:
+                self._ensure_leaf(key)
+            elif self.policy == RestorePolicy.BULK:
+                self._ensure_leaf(key)
+                self._start_background_stream(skip=(key,))
+            else:
+                # NO_LAZY / NO_PAGESERVER should have pre-installed everything
+                self._events[key].wait()
+        self.stats.fault_wait_s += ph.seconds
         return self._local[key]
 
     def wait_all(self) -> None:
         """Block until every leaf is resident container-side (join the BULK
         stream and retry dead leaves, fault everything under LAZY, no-op for
-        the eager policies)."""
+        the eager policies). The BULK block counts in ``stats.fault_wait_s``,
+        as LAZY's faults do."""
         if self.policy == RestorePolicy.BULK:
-            self._start_background_stream()
-            if self._stream_thread is not None:
-                self._stream_thread.join()
-            for key in self._table.order:
-                self._ensure_leaf(key)
+            with spans.phase("migration.wait_all") as ph:
+                self._start_background_stream()
+                if self._stream_thread is not None:
+                    self._stream_thread.join()
+                for key in self._table.order:
+                    self._ensure_leaf(key)
+            self.stats.fault_wait_s += ph.seconds
         elif self.policy == RestorePolicy.LAZY:
-            for key in self._table.order:
-                self.fault(key)
+            with spans.span("migration.wait_all"):
+                for key in self._table.order:
+                    self.fault(key)
 
     def resident_fraction(self) -> float:
         """Fraction of leaves materialized container-side, in [0, 1]."""

@@ -17,6 +17,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+from repro_torch import spans
 from repro_torch.core.image import LiveDependencyImage, build_image
 from repro_torch.core.migration import (
     LinkModel,
@@ -407,16 +408,19 @@ class DependencyManager:
         link: Optional[LinkModel] = None,
     ) -> RestoredImage:
         """Paper Fig. 4c: look up the image, hand metadata + a page server to the
-        container's migration client."""
-        img = self._ensure_live(image_id)
-        with self._lock:
-            img.refcount += 1
-            # Live-manager LRU clock.  # repro-lint: allow[wall-clock]
-            img.last_used = time.monotonic()
-            self._ledger.acquire(image_id)
-            self._ledger.touch(image_id, img.last_used)
-        client = MigrationClient(link or self.link)
-        return client.migrate(img, policy)
+        container's migration client (span ``pool.request``, the image's
+        lookup inside it ``pool.ensure_live``)."""
+        with spans.span("pool.request"):
+            with spans.span("pool.ensure_live"):
+                img = self._ensure_live(image_id)
+            with self._lock:
+                img.refcount += 1
+                # Live-manager LRU clock.  # repro-lint: allow[wall-clock]
+                img.last_used = time.monotonic()
+                self._ledger.acquire(image_id)
+                self._ledger.touch(image_id, img.last_used)
+            client = MigrationClient(link or self.link)
+            return client.migrate(img, policy)
 
     def release(self, image_id: str) -> None:
         with self._lock:

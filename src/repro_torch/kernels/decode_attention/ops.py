@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import spans
 from repro_torch.kernels.build import check, library, on_device, refuse_grad
 
 NEG_INF = -2.0e38
@@ -221,12 +222,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     pairs the kernel does. The kernel has no backward: a CUDA input that
     requires a gradient while grad mode is on raises.
     """
-    _check_args(q, k_cache, v_cache, valid)
-    if q.device.type == "cuda":
-        refuse_grad("decode_attention", q, k_cache, v_cache)
-    out, lse = _decode_op(q, k_cache, v_cache, valid, softcap,
-                          None if scale is None else float(scale), return_lse)
-    return (out, lse) if return_lse else out
+    with spans.span("kernel.decode_attention"):
+        _check_args(q, k_cache, v_cache, valid)
+        if q.device.type == "cuda":
+            refuse_grad("decode_attention", q, k_cache, v_cache)
+        out, lse = _decode_op(q, k_cache, v_cache, valid, softcap,
+                              None if scale is None else float(scale), return_lse)
+        return (out, lse) if return_lse else out
 
 
 def launch_splits(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import spans
 from repro_torch.kernels.build import check, launch_pass, library, on_device
 
 ROUTES = ("sequential", "chunked")
@@ -208,8 +209,9 @@ def diag_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     ``recompute``, ``backward``) in ``diag_recurrence.launches_by_pass``.
     Differentiable: the backward is :func:`diag_recurrence_backward`.
     """
-    _check_args(a, b, h0)
-    return _diag_op(a, b, h0)
+    with spans.span("kernel.diag_recurrence"):
+        _check_args(a, b, h0)
+        return _diag_op(a, b, h0)
 
 
 def run_plan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, plan: RecurrencePlan,

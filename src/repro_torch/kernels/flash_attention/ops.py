@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import spans
 from repro_torch.kernels.build import check, launch_pass, library, on_device
 
 NEG_INF = -2.0e38
@@ -257,10 +258,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Differentiable: when grad mode is on and an input requires a gradient,
     the kernel also writes the rows' log-sum-exp for the backward.
     """
-    _check_args(q, k, v)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
-    with_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return _flash_op(q, k, v, causal, window, softcap, float(scale), with_lse)[0]
+    with spans.span("kernel.flash_attention"):
+        _check_args(q, k, v)
+        scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+        with_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        return _flash_op(q, k, v, causal, window, softcap, float(scale), with_lse)[0]
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -24,6 +24,7 @@ from typing import Iterator, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels.build import check, library, on_device, refuse_grad
 
 CHUNK_BYTES = 32 * 1024     # bytes per work item (a bulk copy's size)
@@ -109,51 +110,52 @@ def page_gather(pool: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
     counted in ``page_gather.launches``. The kernel has no backward: a CUDA
     pool that requires a gradient while grad mode is on raises.
     """
-    if pool.dim() != 2 or page_ids.dim() != 1:
-        raise ValueError(f"want pool (P, E) and ids (K,), got {tuple(pool.shape)} "
-                         f"and {tuple(page_ids.shape)}")
-    if page_ids.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"page ids must be int32 or int64, got {page_ids.dtype}")
-    if not pool.is_contiguous():
-        raise ValueError("pool must be contiguous")
-    P, K = pool.shape[0], page_ids.shape[0]
-    if K:
-        lo, hi = (int(v) for v in torch.aminmax(page_ids))
-        if lo < 0 or hi >= P:
-            raise IndexError(f"page ids must lie in [0, {P}), got [{lo}, {hi}]")
-    if pool.device.type == "cpu":
-        if page_ids.device.type != "cpu":
-            raise ValueError("a CPU pool takes CPU page ids")
-        return page_gather_plain(pool, page_ids)
-    if pool.device.type != "cuda":
-        raise ValueError(f"unsupported device {pool.device}")
-    refuse_grad("page_gather", pool)
-    if page_ids.device.type != "cpu" and page_ids.device != pool.device:
-        raise ValueError("page ids must be on the CPU or on the pool's device")
-    page_ids = page_ids.to(torch.int32).contiguous()
-    host_ids = None
-    if page_ids.device.type == "cpu":
-        if K <= INLINE_IDS:
-            host_ids, page_ids = page_ids, None
-        else:   # too long for the launch parameters: through pinned memory
-            page_ids = page_ids.pin_memory().to(pool.device, non_blocking=True)
-    out = torch.empty((K, pool.shape[1]), dtype=pool.dtype, device=pool.device)
-    row_bytes = pool.shape[1] * pool.element_size()
-    if K == 0 or row_bytes == 0:
+    with spans.span("kernel.page_gather"):
+        if pool.dim() != 2 or page_ids.dim() != 1:
+            raise ValueError(f"want pool (P, E) and ids (K,), got {tuple(pool.shape)} "
+                             f"and {tuple(page_ids.shape)}")
+        if page_ids.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"page ids must be int32 or int64, got {page_ids.dtype}")
+        if not pool.is_contiguous():
+            raise ValueError("pool must be contiguous")
+        P, K = pool.shape[0], page_ids.shape[0]
+        if K:
+            lo, hi = (int(v) for v in torch.aminmax(page_ids))
+            if lo < 0 or hi >= P:
+                raise IndexError(f"page ids must lie in [0, {P}), got [{lo}, {hi}]")
+        if pool.device.type == "cpu":
+            if page_ids.device.type != "cpu":
+                raise ValueError("a CPU pool takes CPU page ids")
+            return page_gather_plain(pool, page_ids)
+        if pool.device.type != "cuda":
+            raise ValueError(f"unsupported device {pool.device}")
+        refuse_grad("page_gather", pool)
+        if page_ids.device.type != "cpu" and page_ids.device != pool.device:
+            raise ValueError("page ids must be on the CPU or on the pool's device")
+        page_ids = page_ids.to(torch.int32).contiguous()
+        host_ids = None
+        if page_ids.device.type == "cpu":
+            if K <= INLINE_IDS:
+                host_ids, page_ids = page_ids, None
+            else:   # too long for the launch parameters: through pinned memory
+                page_ids = page_ids.pin_memory().to(pool.device, non_blocking=True)
+        out = torch.empty((K, pool.shape[1]), dtype=pool.dtype, device=pool.device)
+        row_bytes = pool.shape[1] * pool.element_size()
+        if K == 0 or row_bytes == 0:
+            return out
+        p = plan_gather(K, row_bytes, _sm_count(pool.device))
+        fn = _launch_fn()
+        with on_device(pool.device):
+            stream = torch.cuda.current_stream(pool.device).cuda_stream
+            status = fn(pool.data_ptr(),
+                        page_ids.data_ptr() if page_ids is not None else None,
+                        host_ids.data_ptr() if host_ids is not None else None,
+                        out.data_ptr(), K, row_bytes, p.chunk_bytes, p.n_chunks, p.grid,
+                        p.stages, stream)
+        check(status, "page_gather")
+        with _count_lock:
+            page_gather.launches += 1
         return out
-    p = plan_gather(K, row_bytes, _sm_count(pool.device))
-    fn = _launch_fn()
-    with on_device(pool.device):
-        stream = torch.cuda.current_stream(pool.device).cuda_stream
-        status = fn(pool.data_ptr(),
-                    page_ids.data_ptr() if page_ids is not None else None,
-                    host_ids.data_ptr() if host_ids is not None else None,
-                    out.data_ptr(), K, row_bytes, p.chunk_bytes, p.n_chunks, p.grid,
-                    p.stages, stream)
-    check(status, "page_gather")
-    with _count_lock:
-        page_gather.launches += 1
-    return out
 
 
 page_gather.launches = 0

@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels.diag_recurrence import diag_recurrence
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _he, _zeros, matmul
@@ -104,7 +105,8 @@ def ssm_prefill(
     par: Optional[Parallel] = None,
 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """``(out (B, S, D), state or None)``; one ``recurrence_fn`` call per
-    chunk (the kernel wrapper by default, or its plain version).
+    chunk (the kernel wrapper by default, or its plain version), the chunk
+    loop in one span, ``ssm.scan``.
 
     The last chunk is as long as what is left of the sequence. The reference
     pads it with zero inputs instead, whose decay still applies to the carry,
@@ -118,10 +120,11 @@ def ssm_prefill(
     x_conv = F.silu(causal_conv1d(x_in, params["conv_w"], params["conv_b"]))
     h = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
     ys = []
-    for c0 in range(0, S, chunk):
-        a, b, c_ssm = _selective_terms(params, x_conv[:, c0:c0 + chunk], cfg, par)
-        h_all, h = chunked_diag_recurrence(a, b, h, recurrence_fn=recurrence_fn)
-        ys.append(torch.einsum("bsdn,bsn->bsd", h_all, c_ssm.float()))
+    with spans.span("ssm.scan"):
+        for c0 in range(0, S, chunk):
+            a, b, c_ssm = _selective_terms(params, x_conv[:, c0:c0 + chunk], cfg, par)
+            h_all, h = chunked_diag_recurrence(a, b, h, recurrence_fn=recurrence_fn)
+            ys.append(torch.einsum("bsdn,bsn->bsd", h_all, c_ssm.float()))
     y = torch.cat(ys, dim=1)
     y = (y + params["D"] * x_conv.float()).to(x.dtype)
     out = matmul(y * F.silu(z), params["out_proj"])

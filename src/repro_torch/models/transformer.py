@@ -46,6 +46,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch import spans
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.diag_recurrence import diag_recurrence
 from repro_torch.kernels.flash_attention import flash_attention
@@ -66,6 +67,9 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     unembed,
 )
+
+#: the span of one prefill layer in :func:`forward`, by layer type
+LAYER_SPANS = {t: f"forward.layer.{t}" for t in (GLOBAL_ATTN, LOCAL_ATTN, RECURRENT, SSM)}
 
 
 def _ltype(cfg: ArchConfig, i: int) -> str:
@@ -271,68 +275,74 @@ def forward(
     if make_state and remat != "none":
         raise ValueError("remat is for training: a forward that makes the decode "
                          "state keeps its activations")
-    x = embed_tokens(params["embed"], tokens, cfg, par)
-    enc_out = None
-    if cfg.is_encoder_decoder:
-        if frontend_embeds is None:
-            raise ValueError(f"{cfg.name} needs stub frame embeddings (frontend_embeds)")
-        enc_out = encode(params, frontend_embeds, cfg, attention_fn=attention_fn,
-                         remat=remat != "none", par=par)
-        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
-    elif frontend_embeds is not None:       # VLM: prepend the patch embeddings
-        x = torch.cat([frontend_embeds.to(x.device, x.dtype), x], dim=1)
-    S = x.shape[1]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    run = dict(attention_fn=attention_fn, recurrence_fn=recurrence_fn,
-               make_state=make_state, state_len=state_len, rec_chunk=rec_chunk, par=par)
-    unit_states = [[] for _ in cfg.attn_pattern]
-    cross_k, cross_v = [], []
+    with spans.span("forward"):
+        with spans.span("forward.embed"):
+            x = embed_tokens(params["embed"], tokens, cfg, par)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            if frontend_embeds is None:
+                raise ValueError(f"{cfg.name} needs stub frame embeddings (frontend_embeds)")
+            enc_out = encode(params, frontend_embeds, cfg, attention_fn=attention_fn,
+                             remat=remat != "none", par=par)
+            x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+        elif frontend_embeds is not None:       # VLM: prepend the patch embeddings
+            x = torch.cat([frontend_embeds.to(x.device, x.dtype), x], dim=1)
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        run = dict(attention_fn=attention_fn, recurrence_fn=recurrence_fn,
+                   make_state=make_state, state_len=state_len, rec_chunk=rec_chunk, par=par)
+        unit_states = [[] for _ in cfg.attn_pattern]
+        cross_k, cross_v = [], []
 
-    def unit(x, u):
-        """One pattern unit: ``(x, aux)`` (aux None without experts); states
-        and cross keys are collected on the side (only when ``make_state``,
-        so never under remat)."""
-        aux = None
-        for i, ltype in enumerate(cfg.attn_pattern):
-            p = _index(params["unit"][i], u)
-            ck = None
-            if enc_out is not None:
-                ck = attn.project_cross_kv(p["xattn"], enc_out, cfg, par)
-            x, st, a = _apply_layer(p, x, cfg, ltype, positions, cross_kv=ck, **run)
-            aux = _add_aux(aux, a)
-            unit_states[i].append(st)
-        if enc_out is not None and make_state:   # the reference keeps the unit's last
-            kv = attn.whole_cross_kv(*ck, cfg, par)   # layer's, replicated over model
-            cross_k.append(kv[0])
-            cross_v.append(kv[1])
-        return x, aux
+        def unit(x, u):
+            """One pattern unit: ``(x, aux)`` (aux None without experts); states
+            and cross keys are collected on the side (only when ``make_state``,
+            so never under remat)."""
+            aux = None
+            for i, ltype in enumerate(cfg.attn_pattern):
+                p = _index(params["unit"][i], u)
+                ck = None
+                if enc_out is not None:
+                    ck = attn.project_cross_kv(p["xattn"], enc_out, cfg, par)
+                with spans.span(LAYER_SPANS[ltype]):
+                    x, st, a = _apply_layer(p, x, cfg, ltype, positions, cross_kv=ck, **run)
+                aux = _add_aux(aux, a)
+                unit_states[i].append(st)
+            if enc_out is not None and make_state:   # the reference keeps the unit's last
+                kv = attn.whole_cross_kv(*ck, cfg, par)   # layer's, replicated over model
+                cross_k.append(kv[0])
+                cross_v.append(kv[1])
+            return x, aux
 
-    unit = _remat(unit, remat)
-    aux_loss = None
-    for u in range(cfg.n_pattern_units):
-        x, a = unit(x, u)
-        aux_loss = _add_aux(aux_loss, a)
-    rem_states = []
-    for i, p in enumerate(params.get("rem", ())):
-        x, st, a = _apply_layer(p, x, cfg, _ltype(cfg, i), positions, **run)
-        aux_loss = _add_aux(aux_loss, a)
-        rem_states.append(st)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if logits_slice is not None:
-        x = x[:, -logits_slice:]
-    out = x if return_features else unembed(params["embed"], x, cfg, par)
-    if return_aux and aux_loss is None:
-        aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    head = (out, aux_loss) if return_aux else (out,)
-    if not make_state:
-        return head if return_aux else out
-    state = {"unit": tuple(_stack(s) for s in unit_states),
-             "rem": tuple(rem_states),
-             "pos": torch.full((tokens.shape[0],), S, dtype=torch.int32,
-                               device=x.device)}
-    if cross_k:
-        state["cross"] = {"k": torch.stack(cross_k), "v": torch.stack(cross_v)}
-    return (*head, state)
+        unit = _remat(unit, remat)
+        aux_loss = None
+        for u in range(cfg.n_pattern_units):
+            x, a = unit(x, u)
+            aux_loss = _add_aux(aux_loss, a)
+        rem_states = []
+        for i, p in enumerate(params.get("rem", ())):
+            ltype = _ltype(cfg, i)
+            with spans.span(LAYER_SPANS[ltype]):
+                x, st, a = _apply_layer(p, x, cfg, ltype, positions, **run)
+            aux_loss = _add_aux(aux_loss, a)
+            rem_states.append(st)
+        with spans.span("forward.head"):
+            x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            if logits_slice is not None:
+                x = x[:, -logits_slice:]
+            out = x if return_features else unembed(params["embed"], x, cfg, par)
+        if return_aux and aux_loss is None:
+            aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+        head = (out, aux_loss) if return_aux else (out,)
+        if not make_state:
+            return head if return_aux else out
+        state = {"unit": tuple(_stack(s) for s in unit_states),
+                 "rem": tuple(rem_states),
+                 "pos": torch.full((tokens.shape[0],), S, dtype=torch.int32,
+                                   device=x.device)}
+        if cross_k:
+            state["cross"] = {"k": torch.stack(cross_k), "v": torch.stack(cross_v)}
+        return (*head, state)
 
 
 # ---------------------------------------------------------------------------------
