@@ -24,7 +24,9 @@ families, and checks them:
    slot or every slot (cross attention over 1500 keys);
    diag_recurrence within 1e-4 at the reference's sweep and at the RG-LRU
    shapes (S=512 and 2048, on the chunked route), and bitwise equal at the
-   SSM-chunk shape (on the sequential route), h0 != 0);
+   SSM-chunk shape (on the sequential route), h0 != 0); ssm_terms bitwise
+   equal at falcon-mamba's SSM chunk and decode step, B a view of x_proj's
+   product and x in the conv's layout;
 4. the quickstart loop: three model images in one pool, two tenants per
    serving workload, baseline / warmswap under all four restore policies /
    prebaked, all giving equal classes; every flash_attention launch on the
@@ -171,8 +173,8 @@ families, and checks them:
 
 Each phase prints its seconds. The launch counters are set to 0 just before
 each driven path (phases 4, 5, 7-14, 16, 19b-d, 20b-d, 21a-e) and read just after; a kernel the
-path did not launch fails the run; falcon-mamba's path must run diag_recurrence on its sequential route and
-recurrentgemma's on its chunked route. Each phase frees its models before
+path did not launch fails the run; falcon-mamba's path must build its recurrence inputs with
+ssm_terms and run diag_recurrence on its sequential route, recurrentgemma's on its chunked route. Each phase frees its models before
 the next. Any failed check exits non-zero. The last line is the JSON device
 record.
 """
@@ -346,19 +348,19 @@ def log(msg: str) -> None:
 
 def kernel_fns() -> dict:
     from repro_torch.kernels import (decode_attention, diag_recurrence,
-                                     flash_attention, fleet_scan, page_gather)
+                                     flash_attention, fleet_scan, page_gather, ssm_terms)
     from repro_torch.kernels.flash_attention.ops import flash_attention_backward
     return {"page_gather": page_gather, "flash_attention": flash_attention,
             "flash_attention_backward": flash_attention_backward,
             "decode_attention": decode_attention, "diag_recurrence": diag_recurrence,
-            "fleet_scan": fleet_scan}
+            "fleet_scan": fleet_scan, "ssm_terms": ssm_terms}
 
 
 #: the CUDA source each kernel wrapper's library is built from
 SOURCES = {"page_gather": "page_gather", "flash_attention": "flash_attention",
            "flash_attention_backward": "flash_attention",
            "decode_attention": "decode_attention", "diag_recurrence": "diag_recurrence",
-           "fleet_scan": "fleet_scan"}
+           "fleet_scan": "fleet_scan", "ssm_terms": "ssm_terms"}
 
 
 def launch_counts(kernels: dict) -> dict:
@@ -716,6 +718,37 @@ def check_decode_lse(device) -> None:
             w = torch.exp(lse_of["empty"] - lse_of["live"])
             expect(bool((w == 0).all()), f"decode_attention lse B{B} H{H}/{Hkv} S{S} d{d}: "
                    f"an empty block weighs up to {float(w.max())} beside a live one")
+
+
+#: ssm_terms' checks (B, S, d_inner, state, dt_rank): falcon-mamba-7b's SSM
+#: chunk, a ragged last chunk and a decode step
+SSM_TERMS_MAIN = [(1, 256, 8192, 16, 256), (1, 203, 8192, 16, 256), (1, 1, 8192, 16, 256)]
+
+
+def check_ssm_terms(device, errs: dict) -> None:
+    """a and b bitwise equal to the plain version's, from the inputs in the
+    layouts the model hands over: x in the conv's (B, d_inner, S) memory
+    layout, B a view of x_proj's product."""
+    import torch
+    from repro_torch.kernels.ssm_terms import ssm_terms, ssm_terms_plain
+    gen = torch.Generator(device=device).manual_seed(29)
+    for B, S, di, n, r in SSM_TERMS_MAIN:
+        raw = (torch.randn((B, S, di), generator=gen, device=device) * 4).bfloat16()
+        x = torch.randn((B, di, S), generator=gen, device=device).bfloat16().transpose(1, 2)
+        proj = torch.randn((B, S, r + 2 * n), generator=gen, device=device).bfloat16()
+        dt_bias = torch.rand(di, generator=gen, device=device) * 4 - 7
+        A_log = torch.log(torch.arange(1, n + 1, device=device, dtype=torch.float32)
+                          ).repeat(di, 1)
+        args = (raw, dt_bias, A_log, x, proj[..., r:r + n])
+        before = ssm_terms.launches
+        got, want = ssm_terms(*args), ssm_terms_plain(*args)
+        sync(device)
+        expect(ssm_terms.launches == before + 1, f"ssm_terms S{S} was not launched")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        expect(bitwise, f"ssm_terms B{B} S{S} di{di} n{n}: max |err| {err}, not bitwise equal")
+        errs["ssm_terms"] = max(errs.get("ssm_terms", 0.0), err)
+        log(f"[3] ssm_terms B{B} S{S} di{di} n{n}: bitwise equal {bitwise}")
 
 
 def check_diag_recurrence(device, errs: dict) -> None:
@@ -1372,7 +1405,7 @@ def phase_falcon(device, tmp: str) -> dict:
 
     tag, cfg = "8", get_config(FALCON_ARCH)
     kernels = {k: v for k, v in kernel_fns().items()
-               if k in ("page_gather", "diag_recurrence")}
+               if k in ("page_gather", "diag_recurrence", "ssm_terms")}
     keep: dict = {}
 
     def builder():
@@ -2637,7 +2670,7 @@ def check_sharded(ranks: list, tag: str = "18") -> dict:
                 "zero1": ("flash_attention", "flash_attention_backward"),
                 "forward": ("flash_attention",)}[work]
         if arch == "falcon_mamba_7b":
-            want = ("diag_recurrence",)
+            want = ("diag_recurrence", "ssm_terms")
         elif arch == "recurrentgemma_2b":
             want = (*want, "diag_recurrence")
         for k in want:
@@ -3679,6 +3712,7 @@ def main() -> int:
     check_decode(device, errs)
     check_decode_lse(device)
     check_diag_recurrence(device, errs)
+    check_ssm_terms(device, errs)
     log(f"[3] phase {time.perf_counter() - t0:.1f} s")
     peaks = [free_device("3")]
     timed("3g", check_gradients, device, errs)

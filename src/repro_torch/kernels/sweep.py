@@ -34,6 +34,13 @@ time from ``torch.profiler``, pass 2's rounds and repaired arrivals. Through
 the public wrapper only: copied into an earlier tree whose wrapper takes no
 segment, it times that tree's kernel once a batch.
 
+``--ssm-terms`` times the ssm_terms kernel at falcon-mamba-7b's SSM chunk
+(B1 S256, 8,192 channels, 16 states, bf16) and its decode step (S1): the
+kernel through its wrapper with a cold and a warm L2 and host-paced, and the
+plain chain on the same cold inputs, beside the bytes bound; the wrapper's
+and the plain chain's host us a call; the kernel's name in the profiler's
+trace; twice in turns.
+
 ``--backward`` times the flash_attention backward at the training shapes
 phase 6 times (qwen1.5-0.5b B4 H16/16, qwen3-1.7b H16/8 d=128,
 recurrentgemma's local H10/1 d=256 with its window, S=1024-2560), in fp32
@@ -134,6 +141,15 @@ def recurrence_work(a):
     h0 and h_final once, in fp32."""
     B, S, C = a.shape
     return 3 * B * S * C * 4 + 2 * B * C * 4, 2 * B * S * C
+
+
+def ssm_terms_work(raw, A_log):
+    """Bytes of one ssm_terms call: a and b written once in fp32; raw dt and
+    x read once and B read once in the inputs' dtype; A_log and dt_bias once
+    in fp32."""
+    B, S, di = raw.shape
+    n, esize = A_log.shape[1], raw.element_size()
+    return 2 * B * S * di * n * 4 + 2 * B * S * di * esize + B * S * n * esize + di * (n + 1) * 4
 
 
 def flash_backward_work(q, k, causal, window):
@@ -427,6 +443,48 @@ def time_main(device, rows: list) -> None:
         print(json.dumps(row), flush=True)
 
 
+SSM_TERMS_CASES = {"falcon chunk": (1, 256, 8192, 16, 256), "falcon decode": (1, 1, 8192, 16, 256)}
+
+
+def time_ssm_terms(device, rows: list) -> None:
+    """ssm_terms against its plain chain at falcon-mamba-7b's shapes."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssm_terms import ssm_terms, ssm_terms_plain
+    gen = torch.Generator(device=device).manual_seed(9)
+    l2 = l2_bytes(device)
+    cases = []
+    for label, (B, S, di, n, r) in SSM_TERMS_CASES.items():
+        def make(B=B, S=S, di=di, n=n, r=r):
+            raw = (torch.randn((B, S, di), generator=gen, device=device) - 4).bfloat16()
+            x = torch.randn((B, S, di), generator=gen, device=device).bfloat16()
+            proj = torch.randn((B, S, r + 2 * n), generator=gen, device=device).bfloat16()
+            dt_bias = torch.randn(di, generator=gen, device=device) - 4
+            A_log = torch.log(torch.arange(1, n + 1, device=device, dtype=torch.float32)
+                              ).repeat(di, 1)
+            return raw, dt_bias, A_log, x, proj[..., r:r + n]
+        args = make()
+        moved = ssm_terms_work(args[0], args[2])
+        copies = cold_copies(make, sum(t.numel() * t.element_size() for t in args[:4]), l2)
+        cases.append((label, moved, args, copies))
+    for turn, (label, moved, args, copies) in itertools.product(range(2), cases):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ssm_terms(*args)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages() if e.device_time_total > 0})
+        bound, by = bound_ms(moved, 0, torch.float32)
+        row = {"kernel": "ssm_terms", "shape": label, "turn": turn,
+               "warm_ms": cuda_ms(lambda: ssm_terms(*args)),
+               "cold_ms": cuda_ms([lambda c=c: ssm_terms(*c) for c in copies]),
+               "host_paced_ms": cuda_ms(lambda: ssm_terms(*args), prime=False),
+               "plain_cold_ms": cuda_ms([lambda c=c: ssm_terms_plain(*c) for c in copies]),
+               "host_us": host_us(lambda: ssm_terms(*args)),
+               "plain_host_us": host_us(lambda: ssm_terms_plain(*args)),
+               "bound_ms": bound, "bound_by": by, "cold_copies": len(copies),
+               "device_kernels": names}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+
 def sweep_decode(device, rows: list) -> None:
     gen = torch.Generator(device=device).manual_seed(5)
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -546,6 +604,8 @@ def main(argv=None) -> int:
                     help="the wrappers' host time per call")
     ap.add_argument("--backward", action="store_true",
                     help="the flash backward's launches at the training shapes")
+    ap.add_argument("--ssm-terms", action="store_true",
+                    help="ssm_terms against its plain chain at falcon-mamba-7b's shapes")
     ap.add_argument("--fleet-scan", action="store_true",
                     help="fleet_scan's segment and warm-up on three batches")
     ap.add_argument("--out", help="also write the rows as JSON to this file")
@@ -562,6 +622,8 @@ def main(argv=None) -> int:
         time_backward(device, rows)
     elif args.fleet_scan:
         sweep_fleet_scan(device, rows)
+    elif args.ssm_terms:
+        time_ssm_terms(device, rows)
     elif args.main:
         time_main(device, rows)
     else:

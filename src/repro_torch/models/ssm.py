@@ -3,11 +3,12 @@
 The block subsumes both temporal mixing and the MLP. Prefill follows the
 reference's chunk-fused path: for each chunk of ``chunk`` positions the
 recurrence inputs a and b, ``(B, chunk, d_inner, N)`` in fp32, are built for
-that chunk only, run through the ``diag_recurrence`` kernel as ``(B, chunk,
-d_inner * N)`` from the carried state (``chunked_diag_recurrence`` flattens
-the channels), and contracted with ``C_t`` at once, so the full-length
-``(B, S, d_inner, N)`` tensors never exist. A decode step is one fused state
-update in plain tensor ops, as in the reference. State per layer:
+that chunk only (one ``ssm_terms`` call: the kernel on the card), run
+through the ``diag_recurrence`` kernel as ``(B, chunk, d_inner * N)`` from
+the carried state (``chunked_diag_recurrence`` flattens the channels), and
+contracted with ``C_t`` at once, so the full-length ``(B, S, d_inner, N)``
+tensors never exist. A decode step builds its a and b the same way, then
+updates the state in plain tensor ops, as in the reference. State per layer:
 ``h (B, d_inner, N)`` fp32 and the conv tail of pre-conv inputs.
 
 The reference's ``REPRO_PERF_BASELINE`` branch (an environment-gated unfused
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch import spans
 from repro_torch.kernels.diag_recurrence import diag_recurrence
+from repro_torch.kernels.ssm_terms import ssm_terms
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _he, _zeros, matmul
 from repro_torch.models.sharding import Parallel, f, g, tp_of
@@ -87,10 +89,8 @@ def _selective_terms(params: dict, x_conv: torch.Tensor, cfg: ArchConfig,
     if _split(par):
         proj = f(g(proj, par), par)
     dt_r, b_ssm, c_ssm = proj.split([r, n, n], dim=-1)
-    dt = F.softplus(matmul(dt_r, params["dt_proj"]).float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])                            # (di, n)
-    a = torch.exp(dt[..., None] * A)                           # (B, S, di, n)
-    b = (dt * x_conv.float())[..., None] * b_ssm.float()[:, :, None, :]
+    a, b = ssm_terms(matmul(dt_r, params["dt_proj"]), params["dt_bias"], params["A_log"],
+                     x_conv, b_ssm)
     return a, b, c_ssm
 
 
