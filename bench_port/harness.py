@@ -342,10 +342,7 @@ def restore_mismatch(p: Provider) -> Dict[str, int]:
     for i in range(c["num_hidden_layers"]):
         for path, want in weights.layer(fam, c, p.seed, i, dev).items():
             for params in insts:
-                node = params["unit"][0]
-                for key in path:
-                    node = node[key]
-                bad += count(node[i], want)
+                bad += count(weights.leaf_at(params, fam, c, i, path), want)
                 seen += 1
     return {"bytes": bad, "leaves": seen, "instances": len(insts)}
 

@@ -64,8 +64,8 @@ def class_logits(family, c: dict, seed: int, prompts: Sequence[torch.Tensor],
                  heads: Sequence[Tuple[torch.Tensor, torch.Tensor]], device,
                  product: Callable = mm) -> List[torch.Tensor]:
     """The 16 class logits (fp32) of each prompt: embed, ``family.block``
-    layer by layer, the final norm at the last position, the output head,
-    then the tenant's head ``(W (Vp, 16), b (16,))``."""
+    layer by layer (each told its index), the final norm at the last
+    position, the output head, then the tenant's head ``(W (Vp, 16), b (16,))``."""
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
@@ -75,7 +75,7 @@ def class_logits(family, c: dict, seed: int, prompts: Sequence[torch.Tensor],
             del tok
             for i in range(c["num_hidden_layers"]):
                 w = weights.layer(family, c, seed, i, device, served=False)
-                xs = [family.block(w, x, c, product) for x in xs]
+                xs = [family.block(w, x, c, product, i) for x in xs]
                 del w
             norm = weights.top(c, seed, "final_norm", device, served=False)
             head = weights.top(c, seed, "head", device, served=False)

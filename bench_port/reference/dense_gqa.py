@@ -38,8 +38,9 @@ def port_arch(c: dict) -> dict:
                 norm_eps=norm_eps(c), tie_embeddings=c["tie_word_embeddings"])
 
 
-def layer_leaves(c: dict):
-    """One layer's leaves in the port's layout (``weights.py``)."""
+def layer_leaves(c: dict, i: int):
+    """Layer ``i``'s leaves in the port's layout (``weights.py``); every
+    layer has the same."""
     d, h, hk, hd, f = dims(c)
     dt = c["torch_dtype"]
     return [
@@ -73,8 +74,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def block(w: dict, x: torch.Tensor, c: dict, product) -> torch.Tensor:
-    """One layer on x (L, d_model), fp32."""
+def block(w: dict, x: torch.Tensor, c: dict, product, i: int) -> torch.Tensor:
+    """Layer ``i`` on x (L, d_model), fp32; every layer is the same block."""
     _, h, hk, hd, _ = dims(c)
     L = x.shape[0]
     y = rmsnorm(x, w[("ln1", "scale")], norm_eps(c))

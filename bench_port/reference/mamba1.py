@@ -42,8 +42,9 @@ def port_arch(c: dict) -> dict:
                 tie_embeddings=c["tie_word_embeddings"])
 
 
-def layer_leaves(c: dict):
-    """One layer's leaves in the port's layout (``weights.py``)."""
+def layer_leaves(c: dict, i: int):
+    """Layer ``i``'s leaves in the port's layout (``weights.py``); every
+    layer has the same."""
     d, di, n, k, r = dims(c)
     dt = c["torch_dtype"]
     return [
@@ -95,8 +96,8 @@ def diag_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h.view(nb * T, C)[:L]
 
 
-def block(w: dict, x: torch.Tensor, c: dict, product) -> torch.Tensor:
-    """One layer on x (L, d_model), fp32."""
+def block(w: dict, x: torch.Tensor, c: dict, product, i: int) -> torch.Tensor:
+    """Layer ``i`` on x (L, d_model), fp32; every layer is the same block."""
     _, di, n, _, r = dims(c)
     h = rmsnorm(x, w[("ln1", "scale")], norm_eps(c))
     xin, z = product(h, w[("ssm", "in_proj")]).split(di, dim=-1)

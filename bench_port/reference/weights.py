@@ -7,10 +7,15 @@ at a time. Each layer (and each top-level leaf) draws its numbers from a
 ``randn`` call, so a layer can be made again without the others and without
 a second whole copy of the model.
 
-A family module (``reference/<family>.py``) describes its leaves as
+A family module (``reference/<family>.py``) describes layer ``i`` of a
+configuration: ``layer_leaves(c, i)`` gives layer ``i``'s leaves and
+``block(w, x, c, product, i)`` applies it. Layers may differ from one
+another, as long as the layers the port stacks together (every ``P``-th,
+``P`` the length of the family's ``attn_pattern``) have the same leaves;
+:func:`layer_kinds` names each layer's kind from that pattern. A leaf is
 ``(path, shape, dtype, init)``: ``path`` the keys inside one layer's dict of
-the port's tree (``params["unit"][0]``), ``shape`` one layer's shape (the
-port stacks layers along a leading axis), ``dtype`` ``"bfloat16"`` or
+the port's tree, ``shape`` one layer's shape (the port stacks the layers of
+one pattern position along a leading axis), ``dtype`` ``"bfloat16"`` or
 ``"float32"`` and ``init`` one of
 
 * ``("he", fan_in)``: normal / sqrt(fan_in);
@@ -23,7 +28,7 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -107,7 +112,7 @@ def top(c: dict, seed: int, name: str, device, served: bool = True) -> torch.Ten
 def layer(family, c: dict, seed: int, index: int, device,
           served: bool = True) -> Dict[Tuple[str, ...], torch.Tensor]:
     """Layer ``index``'s leaves."""
-    return draw(family.layer_leaves(c), seed, ("layer", index), device, served)
+    return draw(family.layer_leaves(c, index), seed, ("layer", index), device, served)
 
 
 def _nest(flat: Dict[Tuple[str, ...], torch.Tensor]) -> dict:
@@ -120,17 +125,59 @@ def _nest(flat: Dict[Tuple[str, ...], torch.Tensor]) -> dict:
     return out
 
 
+def layer_kinds(family, c: dict) -> List[str]:
+    """Every layer's kind, in order: the family's ``attn_pattern``, cycled,
+    as the port assigns the pattern units' and the remainder layers' types."""
+    pattern = family.port_arch(c)["attn_pattern"]
+    return [pattern[i % len(pattern)] for i in range(c["num_hidden_layers"])]
+
+
+def slot(family, c: dict, index: int) -> Tuple[Tuple[Any, ...], Optional[int]]:
+    """Where layer ``index`` sits in the port's tree, as
+    ``transformer.init_params`` lays it out: the keys of its dict and its row
+    along the stacking axis. With ``P`` the pattern's length and ``U`` the
+    whole pattern units, ``("unit", j), u`` holds layer ``u * P + j``;
+    ``("rem", r), None`` holds the remainder layer ``U * P + r``, unstacked."""
+    p = len(family.port_arch(c)["attn_pattern"])
+    units = c["num_hidden_layers"] // p
+    if index < units * p:
+        return ("unit", index % p), index // p
+    return ("rem", index - units * p), None
+
+
+def leaf_at(tree: dict, family, c: dict, index: int, path: Tuple[str, ...]) -> torch.Tensor:
+    """Layer ``index``'s leaf ``path`` in the port's tree ``tree``."""
+    keys, row = slot(family, c, index)
+    node = tree
+    for key in keys + tuple(path):
+        node = node[key]
+    return node if row is None else node[row]
+
+
 def make_params(family, c: dict, seed: int, device) -> dict:
     """The whole parameter tree as the port lays it out: ``embed``,
-    ``final_norm``, one pattern unit whose leaves stack the layers, no
-    remainder layers."""
+    ``final_norm``, ``unit`` (one dict a pattern position, whose leaves stack
+    that position's layers) and ``rem`` (the remainder layers, unstacked);
+    see :func:`slot`."""
     n_layers = c["num_hidden_layers"]
-    stacked = {path: torch.empty((n_layers, *shape), dtype=DTYPES[dtype], device=device)
-               for path, shape, dtype, _ in family.layer_leaves(c)}
+    p = len(family.port_arch(c)["attn_pattern"])
+    units = n_layers // p
+    shapes = [[leaf[:3] for leaf in family.layer_leaves(c, j)] for j in range(p)]
+    stacked = [{path: torch.empty((units, *shape), dtype=DTYPES[dtype], device=device)
+                for path, shape, dtype in shapes[j]} for j in range(p)]
+    rem = []
     for i in range(n_layers):
-        for path, v in layer(family, c, seed, i, device).items():
-            stacked[path][i].copy_(v)
+        made = layer(family, c, seed, i, device)
+        (_, j), row = slot(family, c, i)
+        if row is None:
+            rem.append(_nest(made))
+            continue
+        if [leaf[:3] for leaf in family.layer_leaves(c, i)] != shapes[j]:
+            raise ValueError(f"layer {i}'s leaves differ from layer {j}'s, "
+                             "which the port stacks them with")
+        for path, v in made.items():
+            stacked[j][path][row].copy_(v)
     tree = _nest({leaf[0]: top(c, seed, tag, device) for tag, leaf in top_leaves(c)})
-    tree["unit"] = (_nest(stacked),)
-    tree["rem"] = ()
+    tree["unit"] = tuple(_nest(s) for s in stacked)
+    tree["rem"] = tuple(rem)
     return tree

@@ -1,17 +1,23 @@
 """The plain reference and the seeded weights against the port's plain CPU
 path at a tiny size: the same parameter layout as the port's own init, the
 port in fp32 equal to the reference to rounding, in bf16 close to it, and
-the fp8 control far from it."""
+the fp8 control far from it; for both families, and for a test-only hybrid
+whose layers differ (``tiny_hybrid.py``)."""
 import dataclasses
 
 import pytest
 import torch
 
-from bench_port import harness
+from bench_port import harness, tiny_hybrid
 from bench_port.conftest import TINY
 from bench_port.reference import common, dense_gqa, mamba1, weights
 
 FAMILIES = {"tiny-mamba": mamba1, "tiny-dense": dense_gqa}
+#: every family a layout test runs, with its configuration
+LAYOUTS = {name: (fam, TINY[name]) for name, fam in FAMILIES.items()}
+LAYOUTS["tiny-hybrid"] = (tiny_hybrid, tiny_hybrid.CONFIG)
+#: two whole pattern units and two remainder layers
+LAYOUTS["tiny-hybrid-10"] = (tiny_hybrid, dict(tiny_hybrid.CONFIG, num_hidden_layers=10))
 DEV = torch.device("cpu")
 
 
@@ -30,11 +36,11 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
 def test_layout_is_the_ports(name):
     from repro_torch.core.tree import flatten_with_keys
     from repro_torch.models.transformer import init_params
-    fam, c = FAMILIES[name], TINY[name]
+    fam, c = LAYOUTS[name]
     ours = dict(flatten_with_keys(weights.make_params(fam, c, 3, DEV)))
     port = dict(flatten_with_keys(init_params(torch.Generator().manual_seed(0),
                                               _arch(fam, c), torch.bfloat16)))
@@ -43,25 +49,26 @@ def test_layout_is_the_ports(name):
         assert (ours[k].shape, ours[k].dtype) == (v.shape, v.dtype), k
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
 def test_layers_made_again_equal_the_whole(name):
-    fam, c = FAMILIES[name], TINY[name]
+    fam, c = LAYOUTS[name]
     params = weights.make_params(fam, c, 2**31 + 5, DEV)
+    kinds = weights.layer_kinds(fam, c)
     for i in range(c["num_hidden_layers"]):
-        for path, v in weights.layer(fam, c, 2**31 + 5, i, DEV).items():
-            node = params["unit"][0]
-            for key in path:
-                node = node[key]
-            assert torch.equal(node[i], v), (i, path)
+        made = weights.layer(fam, c, 2**31 + 5, i, DEV)
+        assert {"ssm": "ssm", "local": "attn"}[kinds[i]] in {p[0] for p in made}, i
+        for path, v in made.items():
+            assert torch.equal(weights.leaf_at(params, fam, c, i, path), v), (i, path)
     assert torch.equal(params["embed"]["head"], weights.top(c, 2**31 + 5, "head", DEV))
     other = weights.layer(fam, c, 2**31 + 6, 0, DEV)
-    assert not torch.equal(other[("ln1", "scale")], params["unit"][0]["ln1"]["scale"][0])
+    assert not torch.equal(other[("ln1", "scale")],
+                           weights.leaf_at(params, fam, c, 0, ("ln1", "scale")))
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
 def test_reference_against_the_ports_plain_path(name):
     from repro_torch.models.transformer import forward
-    fam, c = FAMILIES[name], TINY[name]
+    fam, c = LAYOUTS[name]
     arch, seed = _arch(fam, c), 11
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, c["vocab_size"], (L,), generator=gen) for L in (9, 40)]
